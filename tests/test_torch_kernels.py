@@ -1,0 +1,104 @@
+"""Plain versions of the port's two CUDA kernels against the JAX Pallas
+kernels they replace (run in interpret mode on the CPU, as the JAX
+package's own tests run them).
+
+Both sides round the operands to bf16 and sum in f32, in different orders,
+so the tolerance is max|diff| <= 1e-3 * (max|ref| + 1). On CPU tensors the
+wrappers must take the plain version (the kernels themselves are checked
+on the card by chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from agile3d_tpu.config import Config
+from agile3d_tpu.ops.banded_conv import banded_conv as jax_banded_conv
+from agile3d_tpu.ops.banded_conv import banded_prep
+from agile3d_tpu.ops.banded_stem import banded_stem_conv as jax_banded_stem_conv
+from agile3d_tpu.ops.banded_stem import stem_banded_prep
+from agile3d_tpu.sparse import build_pyramid as jax_build_pyramid
+from agile3d_tpu.sparse import pad_pyramid as jax_pad_pyramid
+from agile3d_tpu.sparse.quantize import sparse_quantize as jax_sparse_quantize
+from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_reference
+from agile3d_torch.ops.banded_stem import (
+    banded_stem_conv,
+    banded_stem_conv_reference,
+)
+from tests.synthetic import make_scene
+from tests.test_banded_conv import _small_padded_k3
+
+torch.set_num_threads(1)
+
+
+def _close(got, ref):
+    err = float(np.abs(got - ref).max())
+    assert err <= 1e-3 * (float(np.abs(ref).max()) + 1.0), err
+
+
+@pytest.mark.parametrize("cin,cout", [(96, 96), (128, 96)])
+def test_banded_conv_plain_matches_jax_kernel(cin, cout):
+    lvl = _small_padded_k3()
+    k3 = lvl.k3
+    n = k3.shape[0]
+    assert n == 2048
+    rng = np.random.default_rng(cin)
+    x = rng.standard_normal((n, cin)).astype(np.float32)
+    x[~lvl.valid] = 0.0
+    w = rng.standard_normal((27, cin, cout)).astype(np.float32) * 0.1
+    w0_t, lo_t, exc_t, ok = banded_prep(k3)
+    assert ok
+    ref = np.asarray(jax_banded_conv(jnp.asarray(x), jnp.asarray(k3),
+                                     jnp.asarray(lo_t), jnp.asarray(w0_t),
+                                     jnp.asarray(w), exc=exc_t))
+
+    xt, k3t, wt = torch.from_numpy(x), torch.from_numpy(k3), torch.from_numpy(w)
+    got = banded_conv_reference(xt, k3t, wt).numpy()
+    _close(got, ref)
+    assert np.abs(got[~lvl.valid]).max() == 0.0
+    # the wrapper takes the plain version for CPU tensors, and only that
+    launches = banded_conv.launches
+    np.testing.assert_array_equal(banded_conv(xt, k3t, wt).numpy(), got)
+    assert banded_conv.launches == launches
+
+
+def _stem_level():
+    """The scene of tests/test_banded_stem.py (24,576-row bucket)."""
+    rng = np.random.default_rng(3)
+    coords, _, _ = make_scene(rng, n_points=30000, num_obj=4)
+    vox, _, _ = jax_sparse_quantize(coords, Config().model.voxel_size)
+    pyr = jax_pad_pyramid(jax_build_pyramid(vox), buckets=Config().buckets,
+                          stem_banded=False)
+    return pyr.levels[0], rng
+
+
+def test_banded_stem_plain_matches_jax_kernel():
+    lv, rng = _stem_level()
+    n = lv.grid.shape[0]
+    x = np.zeros((n, 3), np.float32)
+    x[: lv.num_valid] = rng.standard_normal((lv.num_valid, 3))
+    w = rng.standard_normal((125, 3, 32)).astype(np.float32) * 0.1
+    w0, lo, r0, rank, exc, ok = stem_banded_prep(lv.k5)
+    assert ok
+    ref = np.asarray(jax_banded_stem_conv(
+        jnp.asarray(x), jnp.asarray(r0), jnp.asarray(rank), jnp.asarray(w0),
+        jnp.asarray(lo), None if exc is None else jnp.asarray(exc),
+        jnp.asarray(w)))
+
+    xt, k5t, wt = torch.from_numpy(x), torch.from_numpy(lv.k5), torch.from_numpy(w)
+    got = banded_stem_conv_reference(xt, k5t, wt).numpy()
+    _close(got, ref)
+    assert np.abs(got[lv.num_valid:]).max() == 0.0
+    launches = banded_stem_conv.launches
+    np.testing.assert_array_equal(banded_stem_conv(xt, k5t, wt).numpy(), got)
+    assert banded_stem_conv.launches == launches
+
+
+def test_plain_versions_round_operands_to_bf16():
+    """Inputs exactly representable in bf16 give the exact f32 sum; one
+    extra mantissa bit below bf16 is rounded away."""
+    x = torch.tensor([[1.0 + 2 ** -9, 2.0], [0.0, 0.0]])
+    k3 = torch.tensor([[0, -1], [-1, -1]], dtype=torch.int32)
+    w = torch.ones((2, 2, 1))
+    y = banded_conv_reference(x, k3, w)
+    assert y[0, 0].item() == 3.0 and y[1, 0].item() == 0.0
