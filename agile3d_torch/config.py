@@ -1,6 +1,8 @@
-"""Configuration of the model and the voxel-count padding buckets.
+"""Configuration of the model, the losses, training and the voxel-count
+padding buckets.
 
-Mirrors the JAX package's ``config.py`` for what the eval path reads. The
+Mirrors the JAX package's ``config.py`` for what the eval and training
+paths read. The
 TPU-only conv switches (scan_blocks, factored_conv, strip_conv,
 stem_zdilated), the chunked-attention thresholds and the bf16 dtype
 policies are not part of this package: convs are the plain gather-GEMM or
@@ -23,6 +25,7 @@ class BackboneConfig:
     planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96)
     layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2)
     conv1_kernel_size: int = 5
+    bn_momentum: float = 0.02
     # Banded CUDA kernels for the wide k3 convs of the two finest levels and
     # for the k5 stem (ops/banded_conv.py, ops/banded_stem.py). None = on
     # for CUDA tensors; the CPU always takes the plain gather-GEMM.
@@ -38,6 +41,7 @@ class ModelConfig:
     num_heads: int = 8
     num_decoders: int = 3
     num_bg_queries: int = 10
+    dropout: float = 0.0                # > 0 is not ported yet
     pre_norm: bool = False
     normalize_pos_enc: bool = True
     positional_encoding_type: str = "fourier"
@@ -52,8 +56,38 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Click-weighted cross-entropy + dice with aux rounds; click weights
+    alpha + (beta - alpha) * (1 - min(d, tita) / tita)."""
+
+    losses: Sequence[str] = ("bce", "dice")
+    bce_loss_coef: float = 1.0
+    dice_loss_coef: float = 2.0
+    aux: bool = True
+    w_alpha: float = 0.8
+    w_beta: float = 2.0
+    w_tita: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    lr_drop: Sequence[int] = (1000,)
+    lr_drop_gamma: float = 0.1
+    epochs: int = 1100
+    val_epochs: int = 50
+    batch_size: int = 5
+    clip_max_norm: float = 0.1
+    seed: int = 42
+    max_num_clicks: int = 20            # per-object eval click budget
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     buckets: Sequence[int] = None  # default set in __post_init__
 
     def __post_init__(self):

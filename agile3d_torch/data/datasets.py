@@ -1,9 +1,9 @@
-"""Multi-object validation scenes and their collation into padded batches
-(the port's own copy of the eval half of the JAX package's
+"""Multi-object scenes and their collation into padded batches (the
+port's own copy of the multi-object half of the JAX package's
 ``data/datasets.py``).
 
-  scene PLY -> min-shift -> voxelize -> coordinate pyramid + kernel maps
-  -> bucket padding.
+  scene PLY -> min-shift -> (train) flips + z-rotations -> voxelize
+  -> coordinate pyramid + kernel maps -> bucket padding.
 """
 
 from __future__ import annotations
@@ -46,6 +46,25 @@ class SceneBatch(NamedTuple):
     obj_tags: list            # per-sample num_obj
 
 
+def augment_coords(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Train-time augmentation: random YZ / XZ flips, a 90-degree
+    z-rotation and a uniform z-rotation, drawn from ``rng`` in the JAX
+    package's order (so one seed gives the same coordinates)."""
+    out = coords.copy()
+    if rng.random() > 0.5:
+        out[:, 0] = -out[:, 0]
+    if rng.random() > 0.5:
+        out[:, 1] = -out[:, 1]
+
+    def rotz(t):
+        c, s = np.cos(t), np.sin(t)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+
+    out = out @ rotz(rng.choice([0, np.pi / 2, np.pi, 3 * np.pi / 2])).T
+    out = out @ rotz(rng.random() * 2 * np.pi - np.pi).T
+    return out.astype(np.float32)
+
+
 def _load_scan(path: str):
     pc = read_ply(path)
     coords = np.column_stack([
@@ -59,15 +78,20 @@ def _load_scan(path: str):
 
 
 class InterMultiObjDataset:
-    """Multi-object scenes listed in a val json
-    {scene_obj_N: {'obj': {new_id: orig_id}, 'clicks': {...}} | {}}."""
+    """Multi-object scenes listed in a train / val json
+    {scene_obj_N: {'obj': {new_id: orig_id}, 'clicks': {...}} | {}}.
+    ``augment`` applies ``augment_coords`` with a generator seeded once
+    from ``seed``."""
 
-    def __init__(self, scan_folder, scene_list, quantization_size):
+    def __init__(self, scan_folder, scene_list, quantization_size,
+                 augment=False, seed=0):
         self.scan_folder = scan_folder
         with open(scene_list) as f:
             self.data_samples = json.load(f)
         self.keys = list(self.data_samples)
         self.quantization_size = quantization_size
+        self.augment = augment
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self):
         return len(self.keys)
@@ -77,6 +101,8 @@ class InterMultiObjDataset:
         scene_name, num_obj = sample_name.split("_obj_")
         coords, colors, labels_full = _load_scan(
             os.path.join(self.scan_folder, scene_name + ".ply"))
+        if self.augment:
+            coords = augment_coords(coords, self.rng)
 
         spec = self.data_samples[sample_name]
         if spec:
@@ -144,3 +170,13 @@ def collate_scenes(samples: list[SceneSample],
         inverse_map=[s.inverse_map for s in samples],
         scene_names=[s.scene_name for s in samples],
         obj_tags=[s.num_obj for s in samples])
+
+
+def build_dataset(split: str, mode: str, *, scan_folder, scene_list,
+                  voxel_size=0.05, seed=0):
+    """The dataset of one split: ``train`` augments. Multi-object only
+    (the single-object protocol is not ported yet)."""
+    if mode != "multi_obj":
+        raise ValueError(f"dataset mode {mode} not supported")
+    return InterMultiObjDataset(scan_folder, scene_list, voxel_size,
+                                augment=split == "train", seed=seed)

@@ -42,6 +42,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def stack_clicks(clicks: list[HostClicks], mc: int, device) -> ClickState:
+    """The first ``mc`` slots of each sample's click table as one
+    [B, mc] ClickState on ``device``."""
+    return ClickState(*(torch.from_numpy(np.stack([getattr(c, f)[:mc]
+                                                   for c in clicks])).to(device)
+                        for f in ("vox", "obj", "time")))
+
+
 class InteractiveEngine:
     """Holds the model on its device and the per-batch device transfer."""
 
@@ -68,9 +76,13 @@ class InteractiveEngine:
         return self._dev_cache
 
     @torch.no_grad()
-    def run_backbone(self, batch: SceneBatch):
+    def run_backbone(self, batch: SceneBatch, training: bool = False):
+        """Scene features of ``batch``. ``training`` normalises with the
+        batch's statistics, as the supervised step will; the new running
+        statistics are dropped (the step commits its own)."""
         pyr, feats, raw, sample_idx = self.device_batch(batch)
-        return self.model.forward_backbone(pyr, feats, raw, sample_idx)
+        return self.model.forward_backbone(pyr, feats, raw, sample_idx,
+                                           {} if training else None)
 
     def _click_bucket(self, count: int) -> int:
         for b in self.CLICK_BUCKETS:
@@ -82,14 +94,24 @@ class InteractiveEngine:
     def run_mask(self, scene, clicks: HostClicks, num_obj: int):
         """Decoder pass over the live click table, sliced to the smallest
         click bucket that holds it. Returns (outputs, argmax labels [B, N])."""
-        mc = self._click_bucket(clicks.count)
         dev = self.device
-        cs = ClickState(vox=torch.from_numpy(clicks.vox[None, :mc]).to(dev),
-                        obj=torch.from_numpy(clicks.obj[None, :mc]).to(dev),
-                        time=torch.from_numpy(clicks.time[None, :mc]).to(dev))
+        cs = stack_clicks([clicks], self._click_bucket(clicks.count), dev)
         out = self.model.forward_mask(
             scene, cs, torch.tensor([num_obj], dtype=torch.int32, device=dev))
         return out, out["pred_masks"].argmax(dim=-1)
+
+    @torch.no_grad()
+    def run_mask_batch(self, scene, clicks: list[HostClicks],
+                       num_obj: np.ndarray) -> torch.Tensor:
+        """One decoder pass for a batch of samples (the training rollout),
+        each sample's click table sliced to the bucket of the largest.
+        Returns the argmax labels [B, N] on the device."""
+        dev = self.device
+        cs = stack_clicks(clicks, self._click_bucket(max(c.count for c in clicks)),
+                          dev)
+        out = self.model.forward_mask(
+            scene, cs, torch.from_numpy(np.asarray(num_obj, np.int32)).to(dev))
+        return out["pred_masks"].argmax(dim=-1)
 
     @torch.no_grad()
     def scene_iou(self, pred_vox: np.ndarray, inverse_map: np.ndarray,

@@ -1,0 +1,285 @@
+"""Training engine: the iterative-click training loop (counterpart of the
+JAX package's ``engine/train.py``, host-rollout path).
+
+Per batch:
+  1. collate the scenes; per sample draw a random object subset (1..10
+     objects) and remap the labels (``prepare_batch``, seeded per batch);
+  2. run the backbone once in training mode without gradients and roll out
+     a random number (0..19) of simulated-click rounds (``rollout_clicks``);
+  3. one supervised step with gradients through the decoder and the
+     backbone: click-weighted CE + dice + aux losses, global-norm clipping,
+     AdamW (``make_train_step``), and the BatchNorm running statistics of
+     that forward committed once.
+
+The loop is synchronous: batch assembly runs between steps (the JAX
+package overlaps it on a prefetch thread; the trajectory is the same).
+"""
+
+from __future__ import annotations
+
+import random as pyrandom
+
+import numpy as np
+import torch
+
+from agile3d_torch.config import Config
+from agile3d_torch.data.datasets import collate_scenes
+from agile3d_torch.engine.clicks import HostClicks, simulate_clicks
+from agile3d_torch.engine.eval import InteractiveEngine, stack_clicks
+from agile3d_torch.models.agile3d import Agile3D, ClickState
+from agile3d_torch.models.backbone import commit_bn_stats
+from agile3d_torch.models.criterion import (
+    click_loss_weights,
+    criterion_forward,
+    loss_weight_dict,
+    model_num_aux_rounds,
+    total_loss,
+)
+
+
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm(max_norm), adamw(schedule,
+    weight_decay))`` over the model's parameters:
+
+      * the schedule is piecewise constant: ``lr`` times ``lr_drop_gamma``
+        for every boundary ``lr_drop[i] * steps_per_epoch`` that the update
+        count has reached (optax's ``piecewise_constant_schedule``);
+      * clipping uses optax's rule: ``g * max_norm / gnorm`` when
+        ``gnorm >= max_norm``, else ``g`` unchanged;
+      * AdamW (betas 0.9 / 0.999, eps 1e-8, decoupled weight decay on every
+        parameter; a parameter without a gradient gets a zero one, as
+        optax's would be)."""
+
+    def __init__(self, params, cfg: Config, steps_per_epoch: int):
+        t = cfg.train
+        self.params = [p for p in params if p.requires_grad]
+        self.max_norm = t.clip_max_norm
+        self.boundaries = {int(e) * steps_per_epoch: t.lr_drop_gamma
+                           for e in t.lr_drop}
+        self.base_lr = t.lr
+        self.count = 0
+        self.adamw = torch.optim.AdamW(self.params, lr=t.lr,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=t.weight_decay)
+
+    def lr(self, count: int) -> float:
+        v = self.base_lr
+        for b, scale in sorted(self.boundaries.items()):
+            if count >= b:
+                v *= scale
+        return v
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clip the gradients, take one AdamW step. Returns the global norm
+        of the gradients before clipping (a device scalar)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        gnorm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        trigger = gnorm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(trigger, g, g / gnorm * self.max_norm))
+        for group in self.adamw.param_groups:
+            group["lr"] = self.lr(self.count)
+        self.adamw.step()
+        self.count += 1
+        return gnorm
+
+
+def make_optimizer(model: Agile3D, cfg: Config, steps_per_epoch: int):
+    """The optimizer over ``model``'s parameters and its schedule."""
+    opt = Optimizer(model.parameters(), cfg, steps_per_epoch)
+    return opt, opt.lr
+
+
+def _per_sample_iou(pred, labels, valid, num_obj, max_obj):
+    """Per-sample foreground mean IoU [B] over objects 1..num_obj."""
+    ious = []
+    for o in range(1, max_obj + 1):
+        p = (pred == o) & valid
+        g = (labels == o) & valid
+        inter = (p & g).sum(-1)
+        union = p.sum(-1) + g.sum(-1) - inter
+        ious.append(torch.where(union > 0, inter / union.clamp(min=1),
+                                torch.zeros((), device=pred.device)))
+    ious = torch.stack(ious, -1)                                  # [B, max_obj]
+    present = (torch.arange(1, max_obj + 1, device=pred.device)[None, :]
+               <= num_obj[:, None])
+    return (torch.where(present, ious, torch.zeros_like(ious)).sum(-1)
+            / num_obj.clamp(min=1))
+
+
+def _batch_miou(pred, labels, valid, num_obj, max_obj):
+    return _per_sample_iou(pred, labels, valid, num_obj, max_obj).mean()
+
+
+def make_train_step(cfg: Config, model: Agile3D, optimizer: Optimizer):
+    """The supervised step: forward with gradients through the decoder and
+    the backbone (training-mode BatchNorm), losses, backward, clipped
+    AdamW step, and the forward's BatchNorm statistics committed."""
+    wd = loss_weight_dict(cfg.loss,
+                          num_aux_rounds=model_num_aux_rounds(cfg.model))
+
+    def train_step(device_batch, clicks: ClickState, labels: torch.Tensor,
+                   num_obj: torch.Tensor) -> dict:
+        pyr, feats, raw, sample_idx = device_batch
+        optimizer.zero_grad()
+        bn_stats = {}
+        with torch.enable_grad():
+            scene = model.forward_backbone(pyr, feats, raw, sample_idx,
+                                           bn_stats)
+            out = model.forward_mask(scene, clicks, num_obj)
+            target = labels.clamp(min=0)
+            vox_valid = scene.vox_valid & (labels >= 0)
+            weights = click_loss_weights(scene.raw, vox_valid, clicks.vox,
+                                         clicks.vox >= 0, cfg.loss)
+            losses = criterion_forward(out["all_masks"], target, weights,
+                                       vox_valid, cfg.loss)
+            tot = total_loss(losses, wd)
+            tot.backward()
+        gnorm = optimizer.step()
+        commit_bn_stats(bn_stats)
+        with torch.no_grad():
+            pred = out["pred_masks"].argmax(-1)
+            miou = _batch_miou(pred, target, vox_valid, num_obj,
+                               cfg.model.max_fg_objects)
+        return {"loss": tot.detach(),
+                "losses": {k: v.detach() for k, v in losses.items()},
+                "gnorm": gnorm, "miou": miou}
+
+    return train_step
+
+
+def subsample_objects(labels_row: np.ndarray, rng: np.random.Generator,
+                      max_obj: int = 10):
+    """A random object subset and the label remap; labels_row uses -1 for
+    pad slots. Only -1 is excluded from the candidates, so the background
+    region (label 0) can be drawn as a foreground object; unselected ids
+    fall back to background."""
+    valid_ids = np.unique(labels_row)
+    valid_ids = valid_ids[valid_ids != -1]
+    if len(valid_ids) == 0:
+        return np.where(labels_row >= 0, 0, -1).astype(np.int32), 0
+    k = rng.integers(1, min(max_obj, len(valid_ids)) + 1)
+    chosen = valid_ids[rng.permutation(len(valid_ids))[:k]]
+    out = np.where(labels_row >= 0, 0, -1).astype(np.int32)
+    for i, obj in enumerate(chosen):
+        out[labels_row == obj] = i + 1
+    return out, int(k)
+
+
+def rollout_clicks(engine: InteractiveEngine, scene, labels: np.ndarray,
+                   num_obj: np.ndarray, raw_per_sample: list, n_valid: list,
+                   rng: pyrandom.Random, cfg: Config) -> list[HostClicks]:
+    """The no-gradient rollout before the supervised step: a random number
+    of rounds (0..19), each a batched decoder pass and the click simulator
+    per sample (clicked voxels forced to their object)."""
+    b = labels.shape[0]
+    clicks = [HostClicks(cfg.model.max_clicks) for _ in range(b)]
+    num_iters = rng.randint(0, 19)
+    current = 0
+    while current <= num_iters:
+        if current == 0:
+            preds = [np.zeros(n_valid[i], np.int32) for i in range(b)]
+        else:
+            pred_host = engine.run_mask_batch(scene, clicks,
+                                              num_obj).cpu().numpy()
+            preds = []
+            for i in range(b):
+                p = pred_host[i, : n_valid[i]].astype(np.int32)
+                v = clicks[i].vox[: clicks[i].count]
+                p[v] = clicks[i].obj[: clicks[i].count]
+                preds.append(p)
+        for i in range(b):
+            new = simulate_clicks(
+                preds[i], labels[i, : n_valid[i]], raw_per_sample[i],
+                num_obj=int(num_obj[i]), training=True,
+                current_num_clicks=current, rng=rng, device=engine.device,
+                max_label=cfg.model.max_fg_objects)
+            if new is not None:
+                clicks[i].extend(new)
+        current += 1
+    return clicks
+
+
+def prepare_batch(dataset, batch_ids, cfg: Config, seed: int):
+    """Load, quantize and collate the scenes, and draw each sample's
+    object subset from a generator of its own seed. Returns (batch,
+    labels, num_obj, n_valid)."""
+    samples = [dataset[int(j)] for j in batch_ids]
+    batch = collate_scenes(samples, cfg.buckets)
+    b = len(samples)
+    n_valid = [int((batch.sample_idx[i] >= 0).sum()) for i in range(b)]
+    rng = np.random.default_rng(seed)
+    labels_new = batch.labels.copy()
+    num_obj = np.zeros(b, np.int32)
+    for i in range(b):
+        labels_new[i], num_obj[i] = subsample_objects(
+            batch.labels[i], rng, cfg.model.max_fg_objects)
+    return batch, labels_new, num_obj, n_valid
+
+
+def click_state(clicks: list[HostClicks], max_clicks: int, device) -> ClickState:
+    """The batch's click tables as a ClickState: 64 slots when every sample
+    has at most 64 clicks, else ``max_clicks``."""
+    mc = 64 if max(c.count for c in clicks) <= 64 else max_clicks
+    return stack_clicks(clicks, mc, device)
+
+
+def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
+                    cfg: Config, epoch: int, *, np_rng: np.random.Generator,
+                    py_rng: pyrandom.Random, order: np.ndarray | None = None,
+                    log=print, print_freq: int = 10) -> dict:
+    """One epoch over ``dataset`` in batches of ``cfg.train.batch_size``
+    (the last may be short). The order and every batch's subsample seed
+    are drawn from ``np_rng`` before the first batch. Returns the epoch's
+    averages (loss, grad_norm, mIoU, loss_bce, loss_dice). Raises
+    FloatingPointError on a non-finite loss."""
+    bs = cfg.train.batch_size
+    n = len(dataset)
+    if order is None:
+        order = np_rng.permutation(n)
+    batches = [order[i: i + bs] for i in range(0, n, bs)]
+    seeds = np_rng.integers(2 ** 31, size=len(batches))
+    sums: dict[str, float] = {}
+    dev = engine.device
+    for step, (ids, seed) in enumerate(zip(batches, seeds)):
+        batch, labels_new, num_obj, n_valid = prepare_batch(
+            dataset, ids, cfg, int(seed))
+        b = labels_new.shape[0]
+
+        # rollout, with the backbone normalising as the supervised pass will
+        scene = engine.run_backbone(batch, training=True)
+        raw_per_sample, off = [], 0
+        for i in range(b):
+            raw_per_sample.append(batch.raw[off: off + n_valid[i]])
+            off += n_valid[i]
+        clicks = rollout_clicks(engine, scene, labels_new, num_obj,
+                                raw_per_sample, n_valid, py_rng, cfg)
+        del scene
+
+        out = train_step(engine.device_batch(batch),
+                         click_state(clicks, cfg.model.max_clicks, dev),
+                         torch.from_numpy(labels_new).to(dev),
+                         torch.from_numpy(num_obj).to(dev))
+        tot = float(out["loss"])
+        if not np.isfinite(tot):
+            raise FloatingPointError(f"Loss is {tot}, stopping training")
+        row = {"loss": tot, "grad_norm": float(out["gnorm"]),
+               "mIoU": float(out["miou"]),
+               **{k: float(v) for k, v in out["losses"].items()
+                  if k in ("loss_bce", "loss_dice")}}
+        for k, v in row.items():
+            sums[k] = sums.get(k, 0.0) + v
+        if step % print_freq == 0 or step == len(batches) - 1:
+            log(f"Epoch: [{epoch}] [{step}/{len(batches)}] "
+                + "  ".join(f"{k}: {v:.4f}" for k, v in row.items()))
+    stats = {k: v / len(batches) for k, v in sums.items()}
+    log(f"Averaged stats: {stats}")
+    return stats

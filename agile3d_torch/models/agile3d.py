@@ -3,7 +3,10 @@ the JAX package's ``models/agile3d.py``).
 
   forward_backbone  -- the UNet, ``lin_squeeze``, the per-sample gather and
                        the positional encoding, once per scene
-  forward_mask      -- the decoder, once per click round
+  forward_mask      -- the decoder, once per click round; with gradients
+                       on, each refinement round is rematerialised in the
+                       backward (torch.utils.checkpoint), as the JAX
+                       package's jax.checkpoint(round_body) does
 
 Clicks are a padded [B, MAX_CLICKS] (voxel, object, time) table and objects
 are padded to 1 + max_fg_objects mask columns. Query slots [0, nbg) are the
@@ -21,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from agile3d_torch.config import ModelConfig
 from agile3d_torch.models.backbone import Res16UNet, SparseConv
@@ -71,6 +75,9 @@ class Agile3D(nn.Module):
                 "hlevels entries must all be 4: the reference's coarse-hlevel "
                 "path is structurally broken, so only repeated-finest "
                 "configurations are supported")
+        if cfg.dropout > 0:
+            raise NotImplementedError(
+                "decoder dropout is not ported yet (dropout must be 0.0)")
         self.cfg = cfg
         c = cfg.hidden_dim
         self.backbone = Res16UNet(cfg.backbone)
@@ -113,11 +120,12 @@ class Agile3D(nn.Module):
         raise ValueError(cfg.positional_encoding_type)
 
     def forward_backbone(self, pyr: PaddedPyramid, feats: torch.Tensor,
-                         raw_coords: torch.Tensor,
-                         sample_idx: torch.Tensor) -> SceneFeatures:
+                         raw_coords: torch.Tensor, sample_idx: torch.Tensor,
+                         bn_stats: dict | None = None) -> SceneFeatures:
         """pyr on the device; feats/raw_coords [N0, 3] flat; sample_idx
-        [B, Ns] flat rows per sample slot, -1 pad."""
-        fmaps = self.backbone(pyr, feats)
+        [B, Ns] flat rows per sample slot, -1 pad. ``bn_stats`` (a dict)
+        runs the backbone in training mode (see ``Res16UNet.forward``)."""
+        fmaps = self.backbone(pyr, feats, bn_stats)
         squeezed = linear(fmaps[-1], self.lin_squeeze_head.kernel,
                           self.lin_squeeze_head.bias,
                           valid=pyr.levels[0].valid)
@@ -219,24 +227,35 @@ class Agile3D(nn.Module):
         labels = torch.zeros((b, n), dtype=torch.long, device=dev)
         present = torch.zeros((b, n_cols), dtype=torch.bool, device=dev)
         n_slots = len(cfg.hlevels)
+
+        def round_body(d, i, queries, src, labels, present):
+            c2s_bias = self._round_bias_dense(labels, present, safe_obj,
+                                              scene.vox_valid)
+            queries = self.c2s_attention[d][i](
+                queries, src, pos=scene.pos_pcd, query_pos=query_pos,
+                attn_bias=c2s_bias)
+            queries = self.c2c_attention[d][i](
+                queries, query_pos=query_pos, attn_bias=q_key_bias)
+            queries = self.ffn_attention[d][i](queries)
+            src = self.s2c_attention[d][i](
+                src, queries, pos=query_pos, query_pos=scene.pos_pcd,
+                attn_bias=q_key_bias)
+            masks, labels, present = self._mask_module(
+                queries, src, query_obj, query_valid, col_valid,
+                scene.vox_valid)
+            return queries, src, labels, present, masks
+
+        # with gradients, each round's [B, H, Q, N] attention intermediates
+        # are recomputed in the backward instead of kept for all rounds
+        remat = torch.is_grad_enabled()
         preds = []
         for r in range(cfg.num_decoders):
             d = 0 if cfg.shared_decoder else r
             for i in range(n_slots):
-                c2s_bias = self._round_bias_dense(labels, present, safe_obj,
-                                                  scene.vox_valid)
-                queries = self.c2s_attention[d][i](
-                    queries, src, pos=scene.pos_pcd, query_pos=query_pos,
-                    attn_bias=c2s_bias)
-                queries = self.c2c_attention[d][i](
-                    queries, query_pos=query_pos, attn_bias=q_key_bias)
-                queries = self.ffn_attention[d][i](queries)
-                src = self.s2c_attention[d][i](
-                    src, queries, pos=query_pos, query_pos=scene.pos_pcd,
-                    attn_bias=q_key_bias)
-                masks, labels, present = self._mask_module(
-                    queries, src, query_obj, query_valid, col_valid,
-                    scene.vox_valid)
+                args = (d, i, queries, src, labels, present)
+                queries, src, labels, present, masks = (
+                    checkpoint(round_body, *args, use_reentrant=False)
+                    if remat else round_body(*args))
                 preds.append(masks)
         all_masks = torch.stack(preds)
         return {

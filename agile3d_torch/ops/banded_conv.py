@@ -10,9 +10,11 @@ exception list for neighbours outside the band; the CUDA kernel gathers rows
 by index from device memory, so it takes ``k3`` alone. The source file says
 what bounds it on the H100 and how the design answers that.
 
-General in cin and cout (the training slice reuses it for dX with
-``flip(w, 0).swapaxes(1, 2)``). CPU tensors take ``banded_conv_reference``;
-CUDA tensors launch the kernel or raise.
+General in cin and cout. Training goes through ``BandedConv``, whose
+backward reuses the kernel for dX (with ``flip(w, 0).swapaxes(1, 2)``) and
+launches the second kernel of the source for dW (``banded_conv_dw``, which
+replaces ``_make_dw_kernel``). CPU tensors take ``banded_conv_reference`` /
+``banded_conv_dw_reference``; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -46,15 +48,25 @@ def banded_conv_reference(x: torch.Tensor, k3: torch.Tensor,
     return gather_gemm_bf16(x, k3, w)
 
 
-def _check(x, nbr, w, k_expect=None):
-    if not (x.is_cuda and nbr.device == x.device and w.device == x.device):
-        raise ValueError("x, the map and w must be on one CUDA device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"x and w must be float32, got {x.dtype}, {w.dtype}")
+def _check_operands(x, nbr, other, what: str) -> None:
+    """Device, type, contiguity and row-count checks shared by the
+    wrappers: x [N, cin] and ``other`` f32, the map int32, all contiguous
+    on one CUDA device."""
+    if not (x.is_cuda and nbr.device == x.device and other.device == x.device):
+        raise ValueError(f"x, the map and {what} must be on one CUDA device")
+    if x.dtype != torch.float32 or other.dtype != torch.float32:
+        raise TypeError(f"x and {what} must be float32, got {x.dtype}, "
+                        f"{other.dtype}")
     if nbr.dtype != torch.int32:
         raise TypeError(f"the neighbour map must be int32, got {nbr.dtype}")
-    if not (x.is_contiguous() and nbr.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x, the map and w must be contiguous")
+    if not (x.is_contiguous() and nbr.is_contiguous() and other.is_contiguous()):
+        raise ValueError(f"x, the map and {what} must be contiguous")
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError(f"{x.shape[0]} rows exceed the kernel's int32 range")
+
+
+def _check(x, nbr, w, k_expect=None):
+    _check_operands(x, nbr, w, "w")
     if x.dim() != 2 or nbr.dim() != 2 or w.dim() != 3:
         raise ValueError(f"bad ranks {tuple(x.shape)}, {tuple(nbr.shape)}, "
                          f"{tuple(w.shape)}")
@@ -64,8 +76,6 @@ def _check(x, nbr, w, k_expect=None):
                          f"{tuple(nbr.shape)}, w {tuple(w.shape)}")
     if k_expect is not None and w.shape[0] != k_expect:
         raise ValueError(f"expected {k_expect} kernel offsets, got {w.shape[0]}")
-    if x.shape[0] >= 2 ** 31:
-        raise ValueError(f"{x.shape[0]} rows exceed the kernel's int32 range")
 
 
 def _lib():
@@ -101,3 +111,109 @@ def banded_conv(x: torch.Tensor, k3: torch.Tensor,
 
 
 banded_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward: dW kernel and the autograd Function
+# ---------------------------------------------------------------------------
+
+DW_MAX_CHUNK = 8192  # the dW kernel's most rows per block (csrc DW_CHUNK)
+_DW_MIN_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+
+
+def banded_conv_dw_reference(x: torch.Tensor, k3: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the dW kernel:
+    dw[j] = sum_m bf16(x[k3[m, j]])^T @ bf16(g[m]), f32 accumulation,
+    [K, cin, cout]."""
+    m, k = k3.shape
+    cin = x.shape[1]
+    xb = x.to(torch.bfloat16).float()
+    gb = g.to(torch.bfloat16).float()
+    gathered = masked_gather(xb, k3.reshape(-1)).reshape(m, k * cin)
+    return (gathered.T @ gb).reshape(k, cin, g.shape[1])
+
+
+def dw_chunk(n: int, k: int, cin: int, cout: int) -> int:
+    """Rows per block of the dW kernel: chunks of up to DW_MAX_CHUNK rows,
+    split smaller (not below 512) until the grid has about two blocks per
+    SM. A multiple of 32; the grid has ceil(n / chunk) chunks."""
+    tiles = k * -(-cin // 128) * -(-cout // 128)
+    nchunks = max(-(-n // DW_MAX_CHUNK),
+                  min(-(-n // 512), -(-_DW_MIN_BLOCKS // tiles)))
+    rows = -(-n // nchunks)
+    return max(32, -(-rows // 32) * 32)
+
+
+def _lib_dw():
+    lib = cuda_build.load("banded_conv")
+    fn = lib.agile3d_banded_conv_dw
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def banded_conv_dw(x: torch.Tensor, k3: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the banded k3 conv. x [N, cin] f32, k3 [N, K]
+    int32 (-1 absent), g [N, cout] f32 -> dw [K, cin, cout] f32."""
+    if x.device.type == "cpu":
+        return banded_conv_dw_reference(x, k3, g)
+    _check_operands(x, k3, g, "g")
+    if x.dim() != 2 or k3.dim() != 2 or g.dim() != 2 \
+            or k3.shape[0] != x.shape[0] or g.shape[0] != x.shape[0]:
+        raise ValueError(f"shape mismatch x {tuple(x.shape)}, map "
+                         f"{tuple(k3.shape)}, g {tuple(g.shape)}")
+    n, cin = x.shape
+    k, cout = k3.shape[1], g.shape[1]
+    cinp, coutp = -(-cin // 8) * 8, -(-cout // 8) * 8
+    chunk = dw_chunk(n, k, cin, cout)
+    dev = x.device
+    dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+    xb = torch.empty((n, cinp), dtype=torch.bfloat16, device=dev)
+    gb = torch.empty((n, coutp), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((max(1, -(-n // chunk)), k, cin, cout),
+                       dtype=torch.float32, device=dev)
+    fn = _lib_dw()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), k3.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                xb.data_ptr(), gb.data_ptr(), part.data_ptr(), n, k, cin,
+                cinp, cout, coutp, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_conv_dw kernel launch failed: CUDA error {rc}")
+    banded_conv_dw.launches += 1
+    return dw
+
+
+banded_conv_dw.launches = 0
+
+
+class BandedConv(torch.autograd.Function):
+    """``banded_conv`` with its backward on the same kernels, as the JAX
+    package's custom VJP (``ops/banded_conv.py::_make_vjp_conv``):
+
+      dX = banded_conv(g, k3, flip(w, 0)^T): for a stride-1 cubic stencil
+           on one coordinate set, the transpose of offset j's map is offset
+           k-1-j's map (``kernel_offsets`` is symmetric), so the forward
+           kernel computes dX with reversed, channel-transposed weights;
+      dW = banded_conv_dw(x, k3, g).
+
+    CPU tensors take the plain versions of both kernels."""
+
+    @staticmethod
+    def forward(ctx, x, k3, w):
+        ctx.save_for_backward(x, k3, w)
+        return banded_conv(x, k3, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k3, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = banded_conv(g, k3, w.flip(0).transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[2]:
+            dw = banded_conv_dw(x, k3, g)
+        return dx, None, dw

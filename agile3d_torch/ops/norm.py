@@ -18,6 +18,31 @@ def batch_norm(x: torch.Tensor, valid: torch.Tensor, weight: torch.Tensor,
                                                       device=y.device))
 
 
+def batch_norm_train(x: torch.Tensor, valid: torch.Tensor,
+                     weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     momentum: float = 0.02):
+    """Training-mode BatchNorm over the valid rows of x [N, C]: batch mean,
+    biased variance for the normalisation, unbiased variance for the
+    running statistics, ``running = (1 - m) * running + m * batch``; rows
+    where ``valid`` is False come out exactly 0. Returns (y, new_mean,
+    new_var); the running buffers are not touched (the caller commits the
+    new statistics, detached)."""
+    m = valid.to(x.dtype)
+    n = torch.clamp(m.sum(), min=1)
+    mean = (x * m[:, None]).sum(0) / n
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    d = torch.where(valid[:, None], x - mean, zero)
+    var = (d * d).sum(0) / n
+    var_unbiased = (d * d).sum(0) / torch.clamp(n - 1, min=1)
+    with torch.no_grad():
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * var_unbiased
+    y = (x - mean) * torch.rsqrt(var + EPS)
+    y = y * weight + bias
+    return torch.where(valid[:, None], y, zero), new_mean, new_var
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """torch nn.LayerNorm over the last axis (biased variance, eps 1e-5)."""

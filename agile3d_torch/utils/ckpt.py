@@ -12,6 +12,8 @@ released ``checkpoint1099.pth`` holds (its ``"model"`` entry).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -65,3 +67,14 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> None:
     or a bare state dict) into ``model``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     load_reference_state_dict(model, ckpt.get("model", ckpt))
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, epoch: int) -> None:
+    """Write ``{"model": reference-layout state dict, "epoch": epoch}`` to
+    ``path`` (a ``.pth`` that ``load_checkpoint`` and the reference read).
+    The optimizer's state is not saved."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in export_reference_state_dict(model).items()}
+    tmp = f"{path}.tmp"
+    torch.save({"model": sd, "epoch": int(epoch)}, tmp)
+    os.replace(tmp, path)

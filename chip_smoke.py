@@ -7,20 +7,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   1. device  -- the card, its power limit, and the build of the CUDA kernels
                 from ``agile3d_torch/csrc`` (one nvcc per source, all at once);
-  2. kernels -- each kernel at the main path's shapes (the smoke scene's own
-                neighbour maps) against its plain PyTorch version on the
-                card, with times from CUDA events (median of 10 after
-                warm-up) for the kernel, the plain version and a library
-                yardstick (one bf16 gather and one cuBLAS matmul, timed here
-                only), beside the card's least time for the same work;
+  2. kernels -- each kernel at the main paths' shapes (the eval smoke
+                scene's neighbour maps; the training batch's for the
+                training forward, dX and dW) against its plain PyTorch
+                version on the card, with times from CUDA events (median of
+                10 after warm-up) for the kernel, the plain version and a
+                library yardstick (one bf16 gather and one cuBLAS matmul,
+                timed here only), beside the card's least time for the
+                same work;
   3. reference -- the full-width model on a mid-size scene on the card
                 (kernels on, then off) against the same model on the CPU,
                 the plain float32 path that the CPU tests hold against the
                 JAX package;
-  4. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
+  4. train reference -- one supervised step at full width on two such
+                scenes: the CPU (plain f32), the card with the kernels off
+                and the card with them on; losses, every gradient, gnorm
+                and the committed BatchNorm statistics compared, launches
+                counted;
+  5. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
                 the synthetic smoke scene (400,000 points, 8 objects) at full
                 Res16UNet34C width with seeded random weights, 2 clicks per
-                object, with the kernels' launch counts read around it.
+                object, with the kernels' launch counts read around it;
+  6. train main path -- ``python -m agile3d_torch.main`` (in process): 15
+                synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
+                level-0 bucket), one epoch of 3 steps and one validation at
+                full width, launches counted per step (24 k3, 8 dW, 0
+                stem), the rollout, the supervised step and the backbone's
+                forward and backward timed with CUDA events.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -41,6 +54,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -51,6 +66,17 @@ PEAK_HBM_BYTES = 3.35e12
 SMOKE_SCENE = dict(num_scenes=1, num_obj=8, n_points=400000, extent=8.0, seed=0)
 REF_SCENE = dict(num_scenes=1, num_obj=4, n_points=60000, extent=4.0, seed=1)
 MAX_NUM_CLICKS = 2
+# training: 15 scenes of ~94,000 voxels (ScanNet-sized), 5 per batch, so
+# every batch pads to the 524,288-row level-0 bucket; 3 steps in one epoch
+TRAIN_SCENES = dict(num_scenes=15, num_obj=8, n_points=190000, extent=6.0,
+                    seed=2)
+TRAIN_BATCH = 5
+TRAIN_STEPS = 3
+# the training reference: two scenes of ~25,000 voxels in one batch (a
+# 65,536-row level 0, so its four k3 convs take the kernels), small enough
+# for two full-width steps on the CPU
+TRAIN_REF_SCENES = dict(num_scenes=2, num_obj=4, n_points=36000, extent=4.0,
+                        seed=1)
 DEVICE = "cuda"
 
 
@@ -146,59 +172,92 @@ def phase_device(torch, cuda_build):
                     for k, v in reports.items()}})
 
 
-def phase_kernels(torch, pyr):
-    """Kernel vs plain version on the card at the main path's shapes."""
-    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_reference
+def kernel_cases(eval_pyr, train_pyr):
+    """(kernel, role, level, cin, cout, count) at the main paths' shapes.
+    ``count`` is the launches per unit of the role: per eval backbone
+    forward for "eval"; per training step for the rest. At each of the two
+    finest levels the first block of block8 / block7 takes 128 -> 96 and
+    the other three k3 convs 96 -> 96; a training step runs them forward
+    twice (the rollout's backbone and the supervised one), and their
+    backward once: dX on the forward kernel (96 -> 128, 96 -> 96) and dW."""
+    cases = [("banded_conv", "eval", lv, cin, 96, per)
+             for lv in eval_pyr.levels[:2] for cin, per in ((128, 1), (96, 3))]
+    cases.append(("banded_stem", "eval", eval_pyr.levels[0], 3, 32, 1))
+    for lv in train_pyr.levels[:2]:
+        cases += [("banded_conv", "train forward", lv, 128, 96, 2),
+                  ("banded_conv", "train forward", lv, 96, 96, 6),
+                  ("banded_conv", "dX", lv, 96, 128, 1),
+                  ("banded_conv", "dX", lv, 96, 96, 3),
+                  ("banded_conv_dw", "dW", lv, 128, 96, 1),
+                  ("banded_conv_dw", "dW", lv, 96, 96, 3)]
+    return cases
+
+
+def phase_kernels(torch, cases):
+    """Kernel vs plain version on the card at the main paths' shapes."""
+    from agile3d_torch.ops.banded_conv import (
+        banded_conv,
+        banded_conv_dw,
+        banded_conv_dw_reference,
+        banded_conv_reference,
+    )
     from agile3d_torch.ops.banded_stem import (
         banded_stem_conv,
         banded_stem_conv_reference,
     )
 
+    fns = {"banded_conv": (banded_conv, banded_conv_reference),
+           "banded_stem": (banded_stem_conv, banded_stem_conv_reference),
+           "banded_conv_dw": (banded_conv_dw, banded_conv_dw_reference)}
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    lv0, lv1 = pyr.levels[0], pyr.levels[1]
-    # per backbone forward: at each of the two finest levels the first block
-    # of block8 / block7 takes 128 -> 96 and the other three k3 convs 96 -> 96
-    cases = [("banded_conv", lv, cin, 96, per, banded_conv,
-              banded_conv_reference)
-             for lv in (lv0, lv1) for cin, per in ((128, 1), (96, 3))]
-    cases.append(("banded_stem", lv0, 3, 32, 1, banded_stem_conv,
-                  banded_stem_conv_reference))
     rows = []
-    for name, lv, cin, cout, per, kern, plain in cases:
+    for name, role, lv, cin, cout, count in cases:
+        kern, plain = fns[name]
         nbr = lv.k5 if name == "banded_stem" else lv.k3
         n, k = nbr.shape
         x = torch.randn((n, cin), generator=g, device=DEVICE)
         x[lv.num_valid:] = 0.0
-        w = torch.randn((k, cin, cout), generator=g, device=DEVICE) \
-            * (k * cin) ** -0.5
-        y = kern(x, nbr, w)
-        ref = plain(x, nbr, w)
+        if name == "banded_conv_dw":
+            # the cotangent of the conv's output: zero on pad rows
+            other = torch.randn((n, cout), generator=g, device=DEVICE)
+            other[lv.num_valid:] = 0.0
+        else:
+            other = torch.randn((k, cin, cout), generator=g, device=DEVICE) \
+                * (k * cin) ** -0.5
+        y = kern(x, nbr, other)
+        ref = plain(x, nbr, other)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         ref_max = float(ref.abs().max())
         tol = 1e-3 * (ref_max + 1.0)
-        pad_max = float(y[lv.num_valid:].abs().max()) if n > lv.num_valid else 0.0
-        check(bool(torch.isfinite(y).all()), f"{name} {n}x{cin}->{cout}: non-finite")
-        check(err <= tol, f"{name} {n}x{cin}->{cout}: max|kernel - plain| "
-                          f"{err} > {tol}")
-        check(pad_max == 0.0, f"{name} {n}x{cin}->{cout}: pad rows {pad_max}")
+        tag = f"{name} ({role}) {n}x{cin}->{cout}"
+        check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+        check(err <= tol, f"{tag}: max|kernel - plain| {err} > {tol}")
+        if name != "banded_conv_dw" and n > lv.num_valid:
+            pad_max = float(y[lv.num_valid:].abs().max())
+            check(pad_max == 0.0, f"{tag}: pad rows {pad_max}")
 
         # yardstick: one bf16 row gather (-1 picks the appended zero row) and
         # one cuBLAS matmul over [n, k*cin]
         xz = torch.cat([x, x.new_zeros((1, cin))]).to(torch.bfloat16)
         idx = nbr.long()
-        w2 = w.to(torch.bfloat16).reshape(k * cin, cout)
-        lib = time_ms(torch, lambda: torch.matmul(xz[idx].view(n, k * cin), w2))
+        if name == "banded_conv_dw":
+            ob = other.to(torch.bfloat16)
+            lib = time_ms(torch, lambda: xz[idx].view(n, k * cin).T @ ob)
+        else:
+            ob = other.to(torch.bfloat16).reshape(k * cin, cout)
+            lib = time_ms(torch, lambda: xz[idx].view(n, k * cin) @ ob)
         b_ms, b_by = bound(nbr, cin, cout)
-        row = dict(kernel=name, rows=n, cin=cin, cout=cout, per_forward=per,
-                   num_valid=lv.num_valid, max_abs_err=err, ref_max=ref_max,
-                   tol=tol, rel_err=err / max(ref_max, 1e-30),
-                   ms=time_ms(torch, lambda: kern(x, nbr, w)),
-                   plain_ms=time_ms(torch, lambda: plain(x, nbr, w)),
+        row = dict(kernel=name, role=role, rows=n, cin=cin, cout=cout,
+                   count=count, num_valid=lv.num_valid, max_abs_err=err,
+                   ref_max=ref_max, tol=tol,
+                   rel_err=err / max(ref_max, 1e-30),
+                   ms=time_ms(torch, lambda: kern(x, nbr, other)),
+                   plain_ms=time_ms(torch, lambda: plain(x, nbr, other)),
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernel_parity", **row})
         rows.append(row)
-        del x, w, y, ref, xz, idx, w2
+        del x, other, y, ref, xz, idx, ob
         torch.cuda.empty_cache()
     return rows
 
@@ -372,6 +431,370 @@ def phase_main_path(torch, scans, val_list, out_dir):
     return launches
 
 
+def _banded_levels(pyr) -> int:
+    """Levels among the two finest whose k3 convs take the kernel."""
+    from agile3d_torch.models.backbone import BANDED_LEVELS, BANDED_MIN_ROWS
+
+    return sum(lv.k3.shape[0] >= BANDED_MIN_ROWS
+               for lv in pyr.levels[:BANDED_LEVELS])
+
+
+def _train_clicks(torch, labels, num_obj, mc=64):
+    """One click on the first voxel of every label present, per sample."""
+    from agile3d_torch.models.agile3d import ClickState
+
+    b = labels.shape[0]
+    vox = np.full((b, mc), -1, np.int32)
+    obj = np.zeros((b, mc), np.int32)
+    for i in range(b):
+        rows = [int(np.nonzero(labels[i] == o)[0][0])
+                for o in range(int(num_obj[i]) + 1) if (labels[i] == o).any()]
+        vox[i, :len(rows)] = rows
+        obj[i, :len(rows)] = labels[i, rows]
+    tm = np.tile(np.arange(mc, dtype=np.int32), (b, 1))
+    return ClickState(*(torch.from_numpy(a) for a in (vox, obj, tm)))
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double(), b.double()
+    na, nb = float(a.norm()), float(b.norm())
+    if nb == 0.0:
+        return 1.0 if na == 0.0 else 0.0
+    return float((a * b).sum()) / max(na * nb, 1e-300)
+
+
+def phase_train_reference(torch, tmp):
+    """One supervised step at full width from the same weights, batch,
+    clicks and labels: on the CPU in plain f32, on the CPU through the
+    kernels' plain versions (bf16 operands at the kernels' places), on the
+    card with the kernels off (f32) and on the card with the kernels on."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset
+    from agile3d_torch.data.synthetic import write_benchmark
+    from agile3d_torch.engine.train import (
+        make_optimizer,
+        make_train_step,
+        prepare_batch,
+    )
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.sparse.grid import to_device
+
+    t0 = time.time()
+    cfg = Config()
+    scans, lst = write_benchmark(os.path.join(tmp, "train_ref"),
+                                 **TRAIN_REF_SCENES)
+    ds = InterMultiObjDataset(scans, lst, cfg.model.voxel_size)
+    batch, labels, num_obj, _ = prepare_batch(ds, list(range(len(ds))), cfg, 0)
+    clicks = _train_clicks(torch, labels, num_obj)
+    model0 = init_agile3d(cfg.model, seed=0, device="cpu")
+
+    def run(device, banded):
+        model = copy.deepcopy(model0).to(device)
+        model.backbone.cfg = dataclasses.replace(model.backbone.cfg,
+                                                 banded_conv=banded)
+        opt, _ = make_optimizer(model, cfg, 1)
+        step = make_train_step(cfg, model, opt)
+        dev_batch = (to_device(batch.pyramid, device),
+                     *(torch.from_numpy(a).to(device)
+                       for a in (batch.feats, batch.raw, batch.sample_idx)))
+        banded_conv.launches = banded_conv_dw.launches = 0
+        banded_stem_conv.launches = 0
+        out = step(dev_batch, type(clicks)(*(t.to(device) for t in clicks)),
+                   torch.from_numpy(labels).to(device),
+                   torch.from_numpy(num_obj).to(device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return dict(
+            loss=float(out["loss"]), gnorm=float(out["gnorm"]),
+            losses={k: float(v) for k, v in out["losses"].items()},
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            bn={n: b.detach().cpu() for n, b in model.named_buffers()
+                if "running" in n},
+            launches=(banded_conv.launches, banded_conv_dw.launches,
+                      banded_stem_conv.launches))
+
+    ref = run("cpu", None)
+    cpu_bf16 = run("cpu", True)
+    runs = {"plain": run(DEVICE, False), "kernels": run(DEVICE, True)}
+
+    # tensors whose gradient is zero in exact arithmetic (the mask MLP's
+    # output bias shifts every object's logit alike) carry only rounding
+    # noise: they are held to stay at noise level, not compared
+    gnorm_ref = math.sqrt(sum(float(g.norm()) ** 2
+                              for g in ref["grads"].values()))
+    live = [n for n, g in ref["grads"].items()
+            if float(g.norm()) > 1e-6 * gnorm_ref]
+
+    # the weights whose gradient the dW kernel computes (block8 at level 0,
+    # block7 at level 1, when the level is routed): their cosine is reported
+    n_lv = _banded_levels(batch.pyramid)
+    layers = cfg.model.backbone.layers
+    banded_weights = {f"backbone.{blk}.{i}.{conv}.kernel"
+                      for blk, n_blocks in (("block8", layers[7]),
+                                            ("block7", layers[6]))[:n_lv]
+                      for i in range(n_blocks) for conv in ("conv1", "conv2")}
+
+    def compare(got, ref=ref):
+        loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                       for k, v in ref["losses"].items())
+        cos = {n: _cosine(got["grads"][n], ref["grads"][n]) for n in live}
+        flat = lambda d: torch.cat([d[n].flatten() for n in live])
+        dead = max((float(g.norm()) / gnorm_ref
+                    for n, g in got["grads"].items() if n not in live),
+                   default=0.0)
+        bn_err = max(float((got["bn"][n] - b).abs().max())
+                     / (float(b.abs().max()) + 1.0)
+                     for n, b in ref["bn"].items())
+        worst = min(cos, key=cos.get)
+        dw_cos = [c for n, c in cos.items() if n in banded_weights]
+        return dict(loss=got["loss"], loss_rel=loss_rel,
+                    gnorm=got["gnorm"],
+                    gnorm_rel=abs(got["gnorm"] - ref["gnorm"]) / ref["gnorm"],
+                    grad_cos_all=_cosine(flat(got["grads"]),
+                                         flat(ref["grads"])),
+                    grad_cos_min=cos[worst], grad_cos_min_at=worst,
+                    grad_cos_median=statistics.median(cos.values()),
+                    dw_cos_min=min(dw_cos, default=1.0),
+                    dead_grad_max=dead,
+                    bn_err=bn_err, launches=got["launches"])
+
+    res = {k: compare(v) for k, v in runs.items()}
+    # the kernels against their plain versions at the same places
+    res["kernels_vs_cpu_bf16"] = compare(runs["kernels"], cpu_bf16)
+    emit({"phase": "train_reference",
+          "rows": [lv.grid.shape[0] for lv in batch.pyramid.levels],
+          "num_valid": [lv.num_valid for lv in batch.pyramid.levels],
+          "banded_levels": n_lv, "cpu_loss": ref["loss"],
+          "cpu_gnorm": ref["gnorm"], "cpu_launches": ref["launches"],
+          **{f"{k}_{m}": v for k, r in res.items() for m, v in r.items()},
+          "seconds": time.time() - t0})
+    check(ref["launches"] == cpu_bf16["launches"] == (0, 0, 0),
+          f"CPU launches {ref['launches']}, {cpu_bf16['launches']}")
+    check(res["plain"]["launches"] == (0, 0, 0),
+          f"kernels off, launches {res['plain']['launches']}")
+    # kernels on: forward and dX per k3 conv, dW per k3 conv, no stem
+    want = (8 * n_lv, 4 * n_lv, 0)
+    check(n_lv > 0 and res["kernels"]["launches"] == want,
+          f"kernels on, launches {res['kernels']['launches']} != {want}")
+    for k, r in res.items():
+        check(math.isfinite(r["loss"]) and math.isfinite(r["gnorm"]),
+              f"{k}: non-finite loss or gnorm")
+        check(r["dead_grad_max"] <= 1e-5,
+              f"{k}: a gradient that is zero in exact arithmetic reached "
+              f"{r['dead_grad_max']} of the global norm")
+    # Tolerances. At random weights the backward amplifies any rounding
+    # difference (gnorm is in the hundreds), so gradients are held by
+    # direction: the whole gradient's cosine and each tensor's
+    # (a tensor whose gradient is a sum with heavy cancellation, such as a
+    # BatchNorm bias, moves most). Each limit is about 10x the difference
+    # the first full-size run on the card showed.
+    # f32 on both sides, summed in other orders through 27 layers and their
+    # backward
+    p = res["plain"]
+    check(p["loss_rel"] <= 1e-3 and p["gnorm_rel"] <= 1e-3,
+          f"card f32 vs CPU f32: loss {p['loss_rel']}, gnorm {p['gnorm_rel']}")
+    check(p["grad_cos_all"] >= 0.9999 and p["grad_cos_min"] >= 0.999,
+          f"card f32 vs CPU f32: gradient cosine all {p['grad_cos_all']}, "
+          f"min {p['grad_cos_min']} ({p['grad_cos_min_at']})")
+    check(p["bn_err"] <= 1e-5, f"card f32 vs CPU f32: BN {p['bn_err']}")
+    # the kernels against their plain versions at the same places (the same
+    # bf16 operands): f32 sums in other orders, and now and then an operand
+    # on the other side of a bf16 rounding boundary, amplified as above
+    c = res["kernels_vs_cpu_bf16"]
+    check(c["loss_rel"] <= 1e-2 and c["gnorm_rel"] <= 5e-2,
+          f"card kernels vs CPU plain versions: loss {c['loss_rel']}, "
+          f"gnorm {c['gnorm_rel']}")
+    check(c["grad_cos_all"] >= 0.99 and c["grad_cos_min"] >= 0.9,
+          f"card kernels vs CPU plain versions: gradient cosine all "
+          f"{c['grad_cos_all']}, min {c['grad_cos_min']} "
+          f"({c['grad_cos_min_at']})")
+    check(c["bn_err"] <= 1e-5, f"card kernels vs CPU plain versions: BN "
+                               f"{c['bn_err']}")
+    # the kernels against f32: bf16 operands (8-bit mantissa) in the
+    # forward, dX and dW of the routed k3 convs
+    q = res["kernels"]
+    check(q["loss_rel"] <= 2e-2 and q["gnorm_rel"] <= 5e-2,
+          f"card kernels vs CPU f32: loss {q['loss_rel']}, gnorm "
+          f"{q['gnorm_rel']}")
+    check(q["grad_cos_all"] >= 0.95,
+          f"card kernels vs CPU f32: gradient cosine {q['grad_cos_all']}")
+    check(q["bn_err"] <= 1e-3, f"card kernels vs CPU f32: BN {q['bn_err']}")
+
+
+def phase_train_main_path(torch, scans, train_list, tmp):
+    """``agile3d_torch.main.main`` (in process) on synthetic ScanNet-sized
+    scenes at full width: one epoch of TRAIN_STEPS steps at batch 5 and one
+    validation, with the kernels' launches counted per step and the
+    rollout, supervised step and backbone timed with CUDA events."""
+    from agile3d_torch import main as pmain
+    from agile3d_torch.engine import train as ptrain
+    from agile3d_torch.models.agile3d import Agile3D, init_agile3d
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.utils.ckpt import load_checkpoint
+
+    with open(train_list) as f:
+        first = next(iter(json.load(f).items()))
+    val_list = os.path.join(tmp, "val_one.json")
+    with open(val_list, "w") as f:
+        json.dump(dict([first]), f)
+    out_dir = os.path.join(tmp, "train_out")
+
+    def counts():
+        return (banded_conv.launches, banded_conv_dw.launches,
+                banded_stem_conv.launches)
+
+    steps, seen = [], {}
+    orig_rollout, orig_make = ptrain.rollout_clicks, pmain.make_train_step
+
+    def rollout(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.time()
+        start.record()
+        clicks = orig_rollout(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        steps.append({"at_rollout": counts(), "rollout": (start, end),
+                      "rollout_wall_s": time.time() - t,
+                      "clicks": [c.count for c in clicks]})
+        return clicks
+
+    def make_train_step(cfg, model, optimizer):
+        inner = orig_make(cfg, model, optimizer)
+        seen["model"] = model
+
+        def step(device_batch, *args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = inner(device_batch, *args)
+            end.record()
+            end.synchronize()
+            seen["batch"] = device_batch
+            steps[-1].update(step=(start, end), at_step=counts(),
+                             rows=[lv.grid.shape[0]
+                                   for lv in device_batch[0].levels],
+                             loss=float(out["loss"]), gnorm=float(out["gnorm"]),
+                             miou=float(out["miou"]))
+            return out
+        return step
+
+    args = pmain.get_args_parser().parse_args([
+        "--scan_folder", scans, "--train_list", train_list,
+        "--val_list", val_list, "--epochs", "1", "--val_epochs", "1",
+        "--batch_size", str(TRAIN_BATCH), "--max_num_clicks", "1",
+        "--seed", "0", "--output_dir", out_dir, "--device", DEVICE])
+    def log(msg):
+        print(f"main: {msg}", flush=True)
+
+    ptrain.rollout_clicks, pmain.make_train_step = rollout, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        banded_conv.launches = banded_conv_dw.launches = 0
+        banded_stem_conv.launches = 0
+        hist = pmain.main(args, log=log)
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        ptrain.rollout_clicks, pmain.make_train_step = orig_rollout, orig_make
+    wall_s = time.time() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # per step: the rollout's backbone (8 forward) before the rollout, the
+    # supervised forward (8) + dX (8) and dW (8) inside the step
+    prev = (0, 0, 0)
+    per_step = []
+    for st in steps:
+        check("at_step" in st, "a rollout without a supervised step")
+        per_step.append(tuple(a - b for a, b in zip(st["at_step"], prev)))
+        prev = st["at_step"]
+    val_launches = tuple(a - b for a, b in zip(launches, prev))
+    model = seen["model"]
+    trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    init = init_agile3d(model.cfg, seed=0, device="cpu").state_dict()
+    moved = lambda pred: sum(not torch.equal(v, init[k])
+                             for k, v in trained.items() if pred(k))
+    n_param = moved(lambda k: "running" not in k)
+    n_bn = moved(lambda k: "running" in k)
+    fresh = Agile3D(model.cfg)
+    load_checkpoint(os.path.join(out_dir, "checkpoint.pth"), fresh)
+    ckpt_equal = all(torch.equal(fresh.state_dict()[k], v)
+                     for k, v in trained.items())
+
+    # steady backbone forward / backward on the last batch (after the
+    # counts were read): training BatchNorm, a fixed random cotangent
+    pyr, feats = seen["batch"][0], seen["batch"][1]
+    bb = model.backbone
+    fwd_ms = time_ms(torch, lambda: bb(pyr, feats, {}), reps=3, warmup=1)
+    bwd = []
+    for _ in range(4):
+        out = bb(pyr, feats, {})[-1]
+        cot = torch.randn(out.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(0), device=DEVICE)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out.backward(cot)
+        end.record()
+        end.synchronize()
+        bwd.append(start.elapsed_time(end))
+        del out, cot
+    model.zero_grad(set_to_none=True)
+
+    row = {"phase": "train_main_path", "steps": len(steps),
+           "rows": [st["rows"] for st in steps],
+           "clicks": [st["clicks"] for st in steps],
+           "launches": {"banded_conv": launches[0],
+                        "banded_conv_dw": launches[1],
+                        "banded_stem": launches[2]},
+           "launches_per_step": per_step, "launches_val": val_launches,
+           "loss": [st["loss"] for st in steps],
+           "gnorm": [st["gnorm"] for st in steps],
+           "miou": [st["miou"] for st in steps],
+           "rollout_ms": [s.elapsed_time(e)
+                          for s, e in (st["rollout"] for st in steps)],
+           "rollout_wall_s": [st["rollout_wall_s"] for st in steps],
+           "step_ms": [s.elapsed_time(e) for s, e in (st["step"] for st in steps)],
+           "backbone_fwd_ms": fwd_ms,
+           "backbone_bwd_ms": statistics.median(bwd[1:]),
+           "peak_mem_gib": peak_gib, "wall_s": wall_s,
+           "params_moved": n_param, "bn_moved": n_bn,
+           "checkpoint_loads_equal": ckpt_equal,
+           "val": {k: finite(v) for k, v in hist["val"].get(0, {}).items()}}
+    emit(row)
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps != {TRAIN_STEPS}")
+    for st in steps:
+        check(st["rows"][0] == 524288 and st["rows"][1] >= 32768,
+              f"training batch rows {st['rows']}: not the 524,288-row bucket")
+    check(all(ps == (24, 8, 0) for ps in per_step),
+          f"launches per step {per_step} != (24, 8, 0)")
+    check(all(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"])
+              for st in steps), "non-finite loss or gnorm")
+    check(n_param > 0 and n_bn > 0, f"moved: {n_param} params, {n_bn} BN")
+    check(ckpt_equal, "checkpoint.pth does not load back equal")
+    check(hist["val"].get(0), "no validation results")
+    return {"banded_conv": launches[0], "banded_conv_dw": launches[1],
+            "banded_stem": launches[2]}
+
+
+def _summary(rows, roles):
+    """Sums over the rows of ``roles``, each weighted by its count."""
+    mine = [r for r in rows if r["role"] in roles]
+    total = lambda key: sum(r[key] * r["count"] for r in mine)
+    by_ops = sum(r["bound_ms"] * r["count"] for r in mine
+                 if r["bound_by"] == "operations")
+    return {"max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if by_ops >= total("bound_ms") / 2
+                         else "bytes"),
+            "library_ms": total("library_ms"),
+            "shapes": ", ".join(f"{r['count']}x {r['rows']}x{r['cin']}->"
+                                f"{r['cout']} ({r['role']})" for r in mine)}
+
+
 def main():
     import torch
 
@@ -392,44 +815,63 @@ def main():
 
     phase_device(torch, cuda_build)
     with tempfile.TemporaryDirectory(prefix="agile3d_smoke_") as tmp:
+        cfg = Config()
         scans, val_list = write_benchmark(os.path.join(tmp, "smoke"),
                                           **SMOKE_SCENE)
-        cfg = Config()
-        batch = collate_scenes(
+        eval_batch = collate_scenes(
             [InterMultiObjDataset(scans, val_list, cfg.model.voxel_size)[0]],
             cfg.buckets)
-        pyr = to_device(batch.pyramid, DEVICE)
-        shapes = phase_kernels(torch, pyr)
-        del pyr
+        train_scans, train_list = write_benchmark(
+            os.path.join(tmp, "train"), **TRAIN_SCENES)
+        train_ds = InterMultiObjDataset(train_scans, train_list,
+                                        cfg.model.voxel_size)
+        train_batch = collate_scenes(
+            [train_ds[i] for i in range(TRAIN_BATCH)], cfg.buckets)
+        shapes = phase_kernels(torch, kernel_cases(
+            to_device(eval_batch.pyramid, DEVICE),
+            to_device(train_batch.pyramid, DEVICE)))
+        del eval_batch, train_batch, train_ds
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
-        launches = phase_main_path(torch, scans, val_list,
-                                   os.path.join(tmp, "out"))
+        phase_train_reference(torch, tmp)
+        eval_launches = phase_main_path(torch, scans, val_list,
+                                        os.path.join(tmp, "out"))
+        train_launches = phase_train_main_path(torch, train_scans, train_list,
+                                               tmp)
 
-    kernels = []
+    # launches: each main path's run (counts zeroed just before, read just
+    # after); the times: the training step's work for the k3 kernel and
+    # dW, one eval backbone forward for the stem
     meta = {
         "banded_conv": ("agile3d_torch/csrc/banded_conv.cu",
-                        tpu_kernel("banded_conv.py", "_make_kernel")),
+                        tpu_kernel("banded_conv.py", "_make_kernel"),
+                        ("train forward", "dX"), "one training step"),
         "banded_stem": ("agile3d_torch/csrc/banded_stem.cu",
-                        tpu_kernel("banded_stem.py", "_make_stem_kernel")),
+                        tpu_kernel("banded_stem.py", "_make_stem_kernel"),
+                        ("eval",), "one eval backbone forward"),
+        "banded_conv_dw": ("agile3d_torch/csrc/banded_conv.cu",
+                           tpu_kernel("banded_conv.py", "_make_dw_kernel"),
+                           ("dW",), "one training step"),
     }
-    for name, (source, replaces) in meta.items():
+    kernels = []
+    for name, (source, replaces, roles, unit) in meta.items():
         mine = [r for r in shapes if r["kernel"] == name]
-        total = lambda key: sum(r[key] * r["per_forward"] for r in mine)
-        by_ops = sum(r["bound_ms"] * r["per_forward"] for r in mine
-                     if r["bound_by"] == "operations")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": ("operations" if by_ops >= total("bound_ms") / 2
-                         else "bytes"),
-            "library_ms": total("library_ms"),
-            "per": "one backbone forward: " + ", ".join(
-                f"{r['per_forward']}x {r['rows']}x{r['cin']}->{r['cout']}"
-                for r in mine)})
+        summary = _summary(mine, roles)
+        by_path = {"eval": eval_launches.get(name, 0),
+                   "train": train_launches[name]}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 **{k: summary[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")},
+                 "per": f"{unit}: {summary['shapes']}"}
+        if name == "banded_conv":
+            ev = _summary(mine, ("eval",))
+            entry["max_abs_err"] = max(entry["max_abs_err"], ev["max_abs_err"])
+            entry["per_eval_forward"] = {k: ev[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "shapes")}
+        kernels.append(entry)
     emit({"total_s": time.time() - t_start})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -55,3 +55,5 @@ def test_replaced_tpu_kernels_are_found():
         "agile3d_tpu/ops/banded_conv.py:181"
     assert chip_smoke.tpu_kernel("banded_stem.py", "_make_stem_kernel") == \
         "agile3d_tpu/ops/banded_stem.py:183"
+    assert chip_smoke.tpu_kernel("banded_conv.py", "_make_dw_kernel") == \
+        "agile3d_tpu/ops/banded_conv.py:280"
