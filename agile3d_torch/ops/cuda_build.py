@@ -3,7 +3,8 @@
 Each source compiles with nvcc for ``sm_90a`` into its own shared library
 with a plain C interface, loaded with ctypes. Nothing here runs at import:
 a kernel builds at its first launch (or when ``build()`` is called), into
-``agile3d_torch/_build/``, and is rebuilt when its source is newer than the
+``agile3d_torch/_build/``, and is rebuilt when its source, or a header of
+``csrc/`` (``*.cuh``, which the sources include), is newer than the
 library. ``build()`` starts one nvcc per stale source, all at once.
 
 nvcc is looked up as ``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda``,
@@ -13,6 +14,7 @@ then on ``PATH``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -21,7 +23,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("banded_conv", "banded_stem")
+SOURCES = ("banded_conv", "banded_stem", "banded_window", "row_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +51,10 @@ def library_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(lib):
+        return True
+    inputs = [source_path(name), *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in inputs)
 
 
 def build(names=SOURCES) -> dict[str, str]:

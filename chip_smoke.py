@@ -10,30 +10,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. kernels -- each kernel at the main paths' shapes (the eval smoke
                 scene's neighbour maps; the training batch's for the
                 training forward, dX and dW) against its plain PyTorch
-                version on the card, with times from CUDA events (median of
-                10 after warm-up) for the kernel, the plain version and a
-                library yardstick (one bf16 gather and one cuBLAS matmul,
-                timed here only), beside the card's least time for the
-                same work;
-  3. reference -- the full-width model on a mid-size scene on the card
+                version on the card, with device times from CUDA events
+                (median of 10 after warm-up, each call behind a short spin
+                kernel so that the host's launch work is not timed) for the
+                kernel, the plain version and a library yardstick (one bf16
+                gather and one cuBLAS matmul, timed here only), beside the
+                card's least time for the same work;
+  3. probes -- the kernels of the TPU probes' counterparts: the windowed
+                banded k3 conv (its plan covers every neighbour of the
+                smoke scene's two finest maps) at the eval k3 shapes against
+                its plain version and ``banded_conv_reference``, timed
+                beside ``banded_conv``; the shared-memory row gather at the
+                TPU probe's shape, exact against ``x[idx]``; then both
+                probe entry points (``agile3d_torch.tools``, in process),
+                with the two kernels' launches counted around them;
+  4. reference -- the full-width model on a mid-size scene on the card
                 (kernels on, then off) against the same model on the CPU,
                 the plain float32 path that the CPU tests hold against the
                 JAX package;
-  4. train reference -- one supervised step at full width on two such
+  5. train reference -- one supervised step at full width on two such
                 scenes: the CPU (plain f32), the card with the kernels off
                 and the card with them on; losses, every gradient, gnorm
                 and the committed BatchNorm statistics compared, launches
                 counted;
-  5. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
+  6. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
                 the synthetic smoke scene (400,000 points, 8 objects) at full
                 Res16UNet34C width with seeded random weights, 2 clicks per
-                object, with the kernels' launch counts read around it;
-  6. train main path -- ``python -m agile3d_torch.main`` (in process): 15
+                object, with the kernels' launch counts read around it (the
+                probes' kernels: 0);
+  7. train main path -- ``python -m agile3d_torch.main`` (in process): 15
                 synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
                 level-0 bucket), one epoch of 3 steps and one validation at
                 full width, launches counted per step (24 k3, 8 dW, 0
-                stem), the rollout, the supervised step and the backbone's
-                forward and backward timed with CUDA events.
+                stem; the probes' kernels 0), the rollout, the supervised
+                step and the backbone's forward and backward timed with
+                CUDA events.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -99,20 +110,12 @@ def finite(x):
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of ``fn`` over ``reps`` calls on the card: CUDA
+    events, each call enqueued behind a short spin kernel so that the
+    wrapper's host time is not counted (``agile3d_torch.tools.time_ms``)."""
+    from agile3d_torch.tools import time_ms as timed
+
+    return timed(fn, torch.device(DEVICE), reps=reps, warmup=warmup)
 
 
 def nvidia_smi() -> str:
@@ -144,16 +147,20 @@ def bound(nbr, cin: int, cout: int) -> tuple[float, str]:
 def tpu_kernel(module: str, func: str) -> str:
     """``file:line`` of the Pallas kernel that a CUDA kernel replaces: the
     definition of ``func`` in ``ops/<module>`` of the JAX package beside the
-    port (read as text; nothing of that package is imported)."""
+    port, or in ``tools/<module>`` for the TPU probes (read as text; nothing
+    of either is imported)."""
     port = os.path.join(ROOT, "agile3d_torch")
-    for path in sorted(glob.glob(os.path.join(ROOT, "*", "ops", module))):
-        if path.startswith(port + os.sep):
+    paths = sorted(glob.glob(os.path.join(ROOT, "*", "ops", module)))
+    paths.append(os.path.join(ROOT, "tools", module))
+    for path in paths:
+        if path.startswith(port + os.sep) or not os.path.exists(path):
             continue
         with open(path) as f:
             for i, line in enumerate(f, 1):
                 if line.startswith(f"def {func}("):
                     return f"{os.path.relpath(path, ROOT)}:{i}"
-    fail(f"no definition of {func} in ops/{module} of the JAX package")
+    fail(f"no definition of {func} in ops/{module} of the JAX package or in "
+         f"tools/{module}")
 
 
 def phase_device(torch, cuda_build):
@@ -262,6 +269,133 @@ def phase_kernels(torch, cases):
     return rows
 
 
+def phase_probes(torch, eval_pyr, eval_dev):
+    """The probes' kernels against their plain versions on the card, then
+    the probe entry points with the launches counted. ``eval_pyr`` is the
+    smoke scene's pyramid on the host, ``eval_dev`` the same on the card."""
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_reference
+    from agile3d_torch.ops.banded_window import (
+        banded_window_conv,
+        banded_window_conv_reference,
+        max_window_rows,
+        window_plan,
+        window_stats,
+        window_work,
+    )
+    from agile3d_torch.ops.row_gather import (
+        gather_work,
+        row_gather_reference,
+        smem_row_gather,
+    )
+    from agile3d_torch.tools import (
+        bound_ms,
+        probe_banded_kernel,
+        probe_smem_gather,
+    )
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = []
+    # the eval backbone's k3 convs at the two finest levels: 128 -> 96 once
+    # and 96 -> 96 three times each
+    for lv, lv_d in zip(eval_pyr.levels[:2], eval_dev.levels[:2]):
+        nbr = lv_d.k3
+        n, k = nbr.shape
+        plan = window_plan(lv.k3, max_rows=max_window_rows(k, 128, 96))
+        stats = window_stats(lv.k3, plan)
+        emit({"phase": "probe_plan", "rows": n, **stats})
+        check(plan.covers, f"the window plan of the {n}-row map does not "
+                           f"cover every present neighbour")
+        plan_d = plan.to(DEVICE)
+        for cin, count in ((128, 1), (96, 3)):
+            x = torch.randn((n, cin), generator=g, device=DEVICE)
+            x[lv.num_valid:] = 0.0
+            w = torch.randn((k, cin, 96), generator=g, device=DEVICE) \
+                * (k * cin) ** -0.5
+            y = banded_window_conv(x, nbr, plan_d, w)
+            ref = banded_window_conv_reference(x, nbr, plan_d, w)
+            full = banded_conv_reference(x, nbr, w)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            err_full = float((y - full).abs().max())
+            ref_max = float(ref.abs().max())
+            tol = 1e-3 * (ref_max + 1.0)
+            tag = f"banded_window_conv {n}x{cin}->96"
+            check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+            check(err <= tol, f"{tag}: max|kernel - plain| {err} > {tol}")
+            check(err_full <= tol, f"{tag}: max|kernel - banded_conv_reference|"
+                                   f" {err_full} > {tol}")
+            pad_max = float(y[lv.num_valid:].abs().max())
+            check(pad_max == 0.0, f"{tag}: pad rows {pad_max}")
+            # the yardstick of banded_conv's rows: one bf16 row gather and
+            # one cuBLAS matmul over [n, k*cin]
+            xz = torch.cat([x, x.new_zeros((1, cin))]).to(torch.bfloat16)
+            idx = nbr.long()
+            ob = w.to(torch.bfloat16).reshape(k * cin, 96)
+            b_ms, b_by = bound_ms(*window_work(nbr, plan_d, cin, 96))
+            row = dict(
+                kernel="banded_window_conv", role="eval shapes", rows=n,
+                cin=cin, cout=96, count=count, num_valid=lv.num_valid,
+                max_abs_err=err, max_abs_err_vs_full=err_full,
+                ref_max=ref_max, tol=tol,
+                ms=time_ms(torch, lambda: banded_window_conv(x, nbr, plan_d, w)),
+                banded_conv_ms=time_ms(torch, lambda: banded_conv(x, nbr, w)),
+                plain_ms=time_ms(torch, lambda: banded_window_conv_reference(
+                    x, nbr, plan_d, w)),
+                library_ms=time_ms(torch, lambda: xz[idx].view(n, k * cin) @ ob),
+                bound_ms=b_ms, bound_by=b_by)
+            emit({"phase": "probe_parity", **row})
+            rows.append(row)
+            del x, w, y, ref, full, xz, idx, ob
+
+    # the row gather at the TPU probe's shape: 27 x 1024 rows of a table
+    # that fits one block's shared memory
+    w_rows, c, m = (probe_smem_gather.SMEM_ROWS, probe_smem_gather.CHANNELS,
+                    probe_smem_gather.GATHERS)
+    x = torch.rand((w_rows, c), generator=g, device=DEVICE)
+    idx = torch.randint(0, w_rows, (m,), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    out = smem_row_gather(x, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(out, row_gather_reference(x, idx)),
+          "smem_row_gather differs from x[idx]")
+    b_ms, b_by = bound_ms(*gather_work(w_rows, c, m))
+    row = dict(kernel="smem_row_gather", role="probe shape", rows=m, cin=c,
+               cout=c, count=1, table_rows=w_rows, max_abs_err=0.0,
+               ms=time_ms(torch, lambda: smem_row_gather(x, idx)),
+               plain_ms=time_ms(torch, lambda: row_gather_reference(x, idx)),
+               library_ms=time_ms(torch, lambda: torch.index_select(x, 0, idx)),
+               bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "probe_parity", **row})
+    rows.append(row)
+    del x, idx, out
+    torch.cuda.empty_cache()
+
+    # the probe path: both entry points at the smoke scene's level 0
+    def log(msg):
+        print(f"probe: {msg}", flush=True)
+
+    t0 = time.time()
+    banded_window_conv.launches = smem_row_gather.launches = 0
+    k3 = eval_pyr.levels[0].k3
+    banded = probe_banded_kernel.run(k3, probe_banded_kernel.CIN,
+                                     probe_banded_kernel.COUT, DEVICE, g,
+                                     log=log)
+    gather = probe_smem_gather.run(k3, DEVICE, g, log=log)
+    torch.cuda.synchronize()
+    launches = {"banded_window_conv": banded_window_conv.launches,
+                "smem_row_gather": smem_row_gather.launches}
+    emit({"phase": "probes", "launches": launches,
+          "banded": {key: v for key, v in banded.items() if key != "plan"},
+          "gather": gather, "seconds": time.time() - t0})
+    check(banded["covers"], "the probe's plan does not cover the map")
+    check(banded["max_abs_err"] <= 1e-3 * (banded["ref_max"] + 1.0),
+          f"probe: window kernel vs plain {banded['max_abs_err']}")
+    check(gather["a_equal"], "probe: smem_row_gather differs from x[idx]")
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel was not launched on the probe path: {launches}")
+    return rows, launches
+
+
 def _clicks(torch, labels, num_obj):
     """One click on the first voxel of each object and of the background."""
     from agile3d_torch.models.agile3d import ClickState
@@ -351,6 +485,8 @@ def phase_main_path(torch, scans, val_list, out_dir):
     from agile3d_torch.engine import eval as peval
     from agile3d_torch.ops.banded_conv import banded_conv
     from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.row_gather import smem_row_gather
 
     events = {"backbone": [], "mask": []}
     seen = {}
@@ -387,10 +523,13 @@ def phase_main_path(torch, scans, val_list, out_dir):
     t0 = time.time()
     try:
         banded_conv.launches = banded_stem_conv.launches = 0
+        banded_window_conv.launches = smem_row_gather.launches = 0
         results = eval_multi_obj.main(args, log=log)
         torch.cuda.synchronize()
         launches = {"banded_conv": banded_conv.launches,
-                    "banded_stem": banded_stem_conv.launches}
+                    "banded_stem": banded_stem_conv.launches,
+                    "banded_window_conv": banded_window_conv.launches,
+                    "smem_row_gather": smem_row_gather.launches}
     finally:
         peval.InteractiveEngine.run_backbone = orig["backbone"]
         peval.InteractiveEngine.run_mask = orig["mask"]
@@ -410,6 +549,8 @@ def phase_main_path(torch, scans, val_list, out_dir):
           f"k3 kernel launches {launches['banded_conv']} != 8 x {n_bb}")
     check(launches["banded_stem"] == 1 * n_bb,
           f"stem kernel launches {launches['banded_stem']} != {n_bb}")
+    check(launches["banded_window_conv"] == launches["smem_row_gather"] == 0,
+          f"a probe kernel ran on the eval path: {launches}")
 
     bb_first = events["backbone"][0][0].elapsed_time(events["backbone"][0][1])
     mask_ms = [s.elapsed_time(e) for s, e in events["mask"]]
@@ -633,6 +774,8 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     from agile3d_torch.models.agile3d import Agile3D, init_agile3d
     from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
     from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.row_gather import smem_row_gather
     from agile3d_torch.utils.ckpt import load_checkpoint
 
     with open(train_list) as f:
@@ -695,9 +838,12 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     try:
         banded_conv.launches = banded_conv_dw.launches = 0
         banded_stem_conv.launches = 0
+        banded_window_conv.launches = smem_row_gather.launches = 0
         hist = pmain.main(args, log=log)
         torch.cuda.synchronize()
         launches = counts()
+        probe_launches = {"banded_window_conv": banded_window_conv.launches,
+                          "smem_row_gather": smem_row_gather.launches}
     finally:
         ptrain.rollout_clicks, pmain.make_train_step = orig_rollout, orig_make
     wall_s = time.time() - t0
@@ -748,7 +894,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
            "clicks": [st["clicks"] for st in steps],
            "launches": {"banded_conv": launches[0],
                         "banded_conv_dw": launches[1],
-                        "banded_stem": launches[2]},
+                        "banded_stem": launches[2], **probe_launches},
            "launches_per_step": per_step, "launches_val": val_launches,
            "loss": [st["loss"] for st in steps],
            "gnorm": [st["gnorm"] for st in steps],
@@ -770,13 +916,15 @@ def phase_train_main_path(torch, scans, train_list, tmp):
               f"training batch rows {st['rows']}: not the 524,288-row bucket")
     check(all(ps == (24, 8, 0) for ps in per_step),
           f"launches per step {per_step} != (24, 8, 0)")
+    check(all(v == 0 for v in probe_launches.values()),
+          f"a probe kernel ran on the training path: {probe_launches}")
     check(all(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"])
               for st in steps), "non-finite loss or gnorm")
     check(n_param > 0 and n_bn > 0, f"moved: {n_param} params, {n_bn} BN")
     check(ckpt_equal, "checkpoint.pth does not load back equal")
     check(hist["val"].get(0), "no validation results")
     return {"banded_conv": launches[0], "banded_conv_dw": launches[1],
-            "banded_stem": launches[2]}
+            "banded_stem": launches[2], **probe_launches}
 
 
 def _summary(rows, roles):
@@ -827,10 +975,12 @@ def main():
                                         cfg.model.voxel_size)
         train_batch = collate_scenes(
             [train_ds[i] for i in range(TRAIN_BATCH)], cfg.buckets)
+        eval_dev = to_device(eval_batch.pyramid, DEVICE)
         shapes = phase_kernels(torch, kernel_cases(
-            to_device(eval_batch.pyramid, DEVICE),
-            to_device(train_batch.pyramid, DEVICE)))
-        del eval_batch, train_batch, train_ds
+            eval_dev, to_device(train_batch.pyramid, DEVICE)))
+        probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
+                                                  eval_dev)
+        del eval_batch, eval_dev, train_batch, train_ds
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
         phase_train_reference(torch, tmp)
@@ -839,9 +989,11 @@ def main():
         train_launches = phase_train_main_path(torch, train_scans, train_list,
                                                tmp)
 
-    # launches: each main path's run (counts zeroed just before, read just
+    # launches: each path's run (counts zeroed just before, read just
     # after); the times: the training step's work for the k3 kernel and
-    # dW, one eval backbone forward for the stem
+    # dW, one eval backbone forward for the stem; for the window kernel the
+    # eval backbone's eight k3 convs in banded_conv's place, for the row
+    # gather the TPU probe's shape
     meta = {
         "banded_conv": ("agile3d_torch/csrc/banded_conv.cu",
                         tpu_kernel("banded_conv.py", "_make_kernel"),
@@ -852,13 +1004,23 @@ def main():
         "banded_conv_dw": ("agile3d_torch/csrc/banded_conv.cu",
                            tpu_kernel("banded_conv.py", "_make_dw_kernel"),
                            ("dW",), "one training step"),
+        "banded_window_conv": (
+            "agile3d_torch/csrc/banded_window.cu",
+            tpu_kernel("probe_banded_kernel.py", "make_banded_conv"),
+            ("eval shapes",),
+            "one eval backbone forward's k3 convs, in banded_conv's place"),
+        "smem_row_gather": (
+            "agile3d_torch/csrc/row_gather.cu",
+            tpu_kernel("probe_vmem_gather.py", "gather_kernel"),
+            ("probe shape",), "27 x 1024 rows of a 384 x 128 f32 table"),
     }
+    paths = {"probe": probe_launches, "eval": eval_launches,
+             "train": train_launches}
     kernels = []
     for name, (source, replaces, roles, unit) in meta.items():
-        mine = [r for r in shapes if r["kernel"] == name]
+        mine = [r for r in shapes + probe_rows if r["kernel"] == name]
         summary = _summary(mine, roles)
-        by_path = {"eval": eval_launches.get(name, 0),
-                   "train": train_launches[name]}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -871,6 +1033,9 @@ def main():
             entry["max_abs_err"] = max(entry["max_abs_err"], ev["max_abs_err"])
             entry["per_eval_forward"] = {k: ev[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "shapes")}
+        if name == "banded_window_conv":
+            entry["banded_conv_ms"] = sum(r["banded_conv_ms"] * r["count"]
+                                          for r in mine)
         kernels.append(entry)
     emit({"total_s": time.time() - t_start})
     emit({"kernels": kernels})

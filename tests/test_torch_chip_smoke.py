@@ -57,3 +57,9 @@ def test_replaced_tpu_kernels_are_found():
         "agile3d_tpu/ops/banded_stem.py:183"
     assert chip_smoke.tpu_kernel("banded_conv.py", "_make_dw_kernel") == \
         "agile3d_tpu/ops/banded_conv.py:280"
+    # the TPU probes, in the repository's tools/
+    assert chip_smoke.tpu_kernel("probe_banded_kernel.py",
+                                 "make_banded_conv") == \
+        "tools/probe_banded_kernel.py:99"
+    assert chip_smoke.tpu_kernel("probe_vmem_gather.py", "gather_kernel") == \
+        "tools/probe_vmem_gather.py:32"

@@ -24,6 +24,15 @@ from agile3d_torch.ops.banded_stem import (
     banded_stem_conv,
     banded_stem_conv_reference,
 )
+from agile3d_torch.ops.banded_window import (
+    banded_window_conv,
+    banded_window_conv_reference,
+    window_plan,
+)
+from agile3d_torch.ops.row_gather import (
+    row_gather_reference,
+    smem_row_gather,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +154,84 @@ def test_banded_conv_function_matches_plain_function(card):
     for name, a, b in zip(("y", "dx", "dw"), grads[0], grads[1]):
         err = float((a - b).abs().max())
         assert err <= 1e-3 * (float(a.abs().max()) + 1.0), (name, err)
+
+
+def _scene_k3(points, seed):
+    """A level-0 map of sorted voxels (banded) with 300 pad rows."""
+    from agile3d_torch.sparse.kernel_maps import build_pyramid
+    from agile3d_torch.sparse.quantize import sparse_quantize
+
+    coords = np.random.default_rng(seed).random((points, 3)).astype(np.float32)
+    vox, _, _ = sparse_quantize(coords * 1.5, 0.05)
+    k3 = build_pyramid(vox).levels[0].k3
+    return torch.from_numpy(np.concatenate(
+        [k3, np.full((300, 27), -1, np.int32)]))
+
+
+@pytest.mark.parametrize("points,cin,cout,max_rows", [
+    (20000, 96, 96, None), (20000, 128, 96, None), (20000, 40, 200, None),
+    (8000, 3, 20, None), (8000, 256, 130, 150), (20000, 96, 96, 100),
+    (0, 64, 32, None),
+])
+def test_banded_window_matches_plain(card, points, cin, cout, max_rows):
+    """Banded scene maps (and, at 0 points, a random map whose windows span
+    its whole 700 rows); a max_rows cap drops the neighbours past it."""
+    if points:
+        k3 = _scene_k3(points, cin)
+    else:
+        k3 = _inputs(700, 1, 1, 27, 0, "cpu")[1]
+        k3[-300:] = -1
+    plan = window_plan(k3, max_rows=max_rows)
+    assert plan.covers == (max_rows is None)
+    n = k3.shape[0]
+    g = torch.Generator().manual_seed(n + cin)
+    x = torch.randn(n, cin, generator=g)
+    x[-300:] = 0.0
+    w = torch.randn(27, cin, cout, generator=g) * (27 * cin) ** -0.5
+    x, k3, w, plan = x.to(card), k3.to(card), w.to(card), plan.to(card)
+    before = banded_window_conv.launches
+    y = banded_window_conv(x, k3, plan, w)
+    torch.cuda.synchronize()
+    assert banded_window_conv.launches == before + 1
+    ref = banded_window_conv_reference(x, k3, plan, w)
+    err = float((y - ref).abs().max())
+    assert err <= 1e-3 * (float(ref.abs().max()) + 1.0), err
+    assert float(y[-300:].abs().max()) == 0.0
+    if plan.covers:
+        full = banded_conv_reference(x, k3, w)
+        assert float((y - full).abs().max()) <= 1e-3 * (
+            float(full.abs().max()) + 1.0)
+
+
+def test_banded_window_refuses_a_window_that_does_not_fit(card):
+    x, k3, w = _inputs(5000, 128, 96, 27, 1, card)
+    plan = window_plan(k3)  # random neighbours: windows of ~5,000 rows
+    with pytest.raises(ValueError):
+        banded_window_conv(x, k3, plan.to(card), w)
+    with pytest.raises(ValueError):
+        banded_window_conv(x, k3, plan, w)  # the plan is on the CPU
+
+
+@pytest.mark.parametrize("w,c,m", [(384, 128, 27 * 1024), (100, 4, 1000),
+                                   (1, 8, 5), (3000, 16, 70000)])
+def test_smem_row_gather_equals_indexing(card, w, c, m):
+    g = torch.Generator().manual_seed(w + m)
+    x = torch.randn(w, c, generator=g).to(card)
+    idx = torch.randint(0, w, (m,), generator=g, dtype=torch.int32).to(card)
+    before = smem_row_gather.launches
+    out = smem_row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert smem_row_gather.launches == before + 1
+    assert torch.equal(out, row_gather_reference(x, idx))
+
+
+def test_smem_row_gather_refuses_bad_inputs(card):
+    idx = torch.zeros(10, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        smem_row_gather(torch.zeros(4096, 128, device=card), idx)  # 2 MB
+    with pytest.raises(ValueError):
+        smem_row_gather(torch.zeros(10, 3, device=card), idx)
+    with pytest.raises(TypeError):
+        smem_row_gather(torch.zeros(10, 4, device=card), idx.long())
+    with pytest.raises(ValueError):
+        smem_row_gather(torch.zeros(10, 4, device=card), idx.cpu())
