@@ -1,62 +1,67 @@
-// Banded k3 sparse convolution for Hopper (sm_90a).
+// Banded k3 sparse convolution for Hopper (sm_90a): the forward (also dX)
+// and the weight gradient.
 //
-//   y[i, :] = sum_{j < k} bf16(x[nbr[i, j], :]) @ bf16(w[j]),  f32 accumulation
+//   y[i, :]  = sum_{j < k} bf16(x[nbr[i, j], :]) @ bf16(w[j]),   f32 accumulation
+//   dw[j]    = sum_m bf16(x[nbr[m, j], :])^T @ bf16(g[m, :]),     f32 accumulation
 //
 // nbr[i, j] == -1 contributes 0, so rows whose neighbours are all absent
 // (the pad rows of a bucket) come out exactly 0.
 //
-// Replaces the JAX package's ops/banded_conv.py::_make_kernel (the Mosaic
-// kernel that gathers rows through one-hot band matmuls, because Mosaic has
-// no row gather from VMEM). Here each block gathers its rows straight from
-// device memory by index, so there is no window plan and no exception list.
+// Replaces the JAX package's agile3d_tpu/ops/banded_conv.py:181
+// (_make_kernel: gathers a sorted row window through one-hot band matmuls,
+// because Mosaic has no row gather from VMEM, plus an exception list) and
+// agile3d_tpu/ops/banded_conv.py:280 (_make_dw_kernel: carries the
+// [k * cin, cout] sum in VMEM across its sequential grid). Here the rows
+// are gathered by index straight from device memory: no window plan, no
+// exception list.
 //
-// Bound on the H100: at cin = 128 or 96, cout = 96 the function does
-// 2 * cin * cout = 18-25 kFLOP per present neighbour against one gathered
-// row of 2 * cin bytes (bf16), ~96 FLOP per gathered byte. The gathers
-// mostly hit L2 (neighbours of consecutive rows are near each other in the
-// sorted row order), so the floor is the bf16 tensor-core rate; what a
-// simple kernel loses to is the latency of the dependent gathers.
+// Bound on the H100: 2 * cin * cout FLOP per present neighbour (18-25 kFLOP
+// at cin 96-128, cout 96) against one gathered row of 2 * cin bytes, ~96
+// FLOP per gathered byte, mostly from L2 (neighbours of consecutive sorted
+// rows are near each other): the floor is the bf16 tensor-core rate. What
+// held the first design (mma.sync, a 128-row block, one 32-channel slice of
+// w[j] staged per step behind a block-wide barrier) 8-10x above it was not
+// the rows: every block re-staged all of w (648 KiB at 128 -> 96, 1.02 GB
+// of L2 reads per call at 196,608 rows, more than the 0.81 GB of gathered
+// rows) with 24 mma.sync per warp between barriers. Its dW kernel read each
+// row of g 27 times, once per offset's block.
 //
-// Design: two passes.
-//  1. cast_rows / cast_weights: x -> bf16 rows padded to cinp (a multiple
-//     of 32 channels), w -> bf16 [k][cout][cinp] (each output column's
-//     weights contiguous in cin). This halves the gathered bytes and lets
-//     the main pass copy 16-byte pieces of rows straight into shared memory.
-//  2. conv: a block owns BM = 128 output rows and BN <= 128 output columns
-//     (blockIdx.y tiles wider outputs). It stages its rows' k neighbour
-//     indices in shared memory once, then walks (offset j, 32-channel slice)
-//     steps through a 4-stage cp.async pipeline: each stage gathers 128
-//     neighbour rows (zero-filled where the index is -1) and the matching
-//     slice of w[j]^T. 8 warps (4 along rows x 2 along columns) load
-//     fragments with ldmatrix and run mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); the accumulators stay in registers across all offsets.
-// No TMA or wgmma yet: gathered rows do not form the dense tiles those
-// want without a sorted-band staging step, which is later work.
-//
-// The backward of the conv (training) is two calls into this file:
-//  * dX = conv(g, nbr, flip(w, 0)^T) through agile3d_banded_conv itself:
-//    for a stride-1 cubic stencil on one coordinate set, offset j's map
-//    transposed is offset k-1-j's map.
-//  * dW through agile3d_banded_conv_dw, below:
-//
-//      dw[j] = sum_m bf16(x[nbr[m, j]])^T @ bf16(g[m]),  f32 accumulation
-//
-//    It replaces the JAX package's ops/banded_conv.py::_make_dw_kernel,
-//    which carries the [k * cin, cout] sum in VMEM across its sequential
-//    grid. Blocks on the H100 run in no order, so the sum over m is split:
-//    a block owns (offset j, a chunk of up to DW_CHUNK rows, a 128 x BN
-//    tile of dw[j]), gathers its chunk's neighbour rows of x as bf16 and
-//    the matching rows of g through the same 4-stage cp.async pipeline
-//    (zero-fill for -1 and past the end), runs mma.sync m16n8k16 with the
-//    rows as the reduction axis (ldmatrix.trans turns both row-major tiles
-//    into the A = x^T and B = g fragments), and writes one f32 partial per
-//    chunk. A second pass sums the partials in chunk order, so the result
-//    does not change from run to run (no atomics).
-//    Bound: the same products as the forward (2 * cin * cout per present
-//    neighbour), so the floor is the bf16 tensor-core rate again; what the
-//    partials add is k * cin * cout * 4 B per chunk written and read once.
-//    Blocks are numbered with j fastest, so the 27 blocks of one chunk run
-//    together and share its rows of g, nbr and x in L2.
+// Design: warp-specialised kernels on rings of stages in shared memory
+// (common.cuh), with no __syncthreads in their main loops. Two producer
+// warpgroups (registers lowered with setmaxnreg) keep the stages full; two
+// consumer warpgroups run wgmma.mma_async m64nNk16 (bf16 in, f32
+// accumulators in registers) and give a stage back through its `empty`
+// mbarrier. The operand that every CTA reads whole (the weights; for dW the
+// rows of g) is cast once per call into the exact swizzled shared-memory
+// image that wgmma reads, one contiguous run per stage, and arrives by bulk
+// copy (cp.async.bulk: no tensor map, so the library needs nothing beyond
+// the CUDA runtime).
+//  * conv (forward and dX): a CTA owns 256 output rows (128 per consumer
+//    warpgroup, two m64 tiles) and BN <= 128 output columns (blockIdx.y
+//    tiles wider outputs), so each weight slice is staged once per 256 rows
+//    instead of once per 128 (0.51 GB of L2 reads at 196,608 rows,
+//    128 -> 96). It first stages its rows' indices and finds, for each dx
+//    (the 9 offsets whose neighbours of sorted rows lie in one band), the
+//    window of rows they span. For each (dx, 64-channel slice) it copies
+//    that window once into shared memory (16-byte cp.async, a zero row
+//    after it) and each of the dx's offsets reads its A fragments from it by
+//    row address (ldmatrix; an absent neighbour reads the zero row), then
+//    runs wgmma with A from registers against the offset's weight slice
+//    (one ring stage per offset and slice). A window longer than the
+//    shared memory left falls back, in that CTA, to one window per offset
+//    holding its 256 gathered rows. The dX conv reads the forward's weights
+//    through the image cast (flip(w, 0).transpose(1, 2)), with no copy.
+//  * dW: a CTA owns (a chunk of rows, a group of 2 offsets, 128 input
+//    channels, BN <= 128 output columns), one consumer warpgroup per
+//    offset. One stage = 64 rows: those rows of g (B, MN-major, from the
+//    image of g, shared by the two offsets) and, per offset, the 64
+//    gathered rows of x (A = x^T, MN-major). Each row of g is read 27 / 2
+//    times instead of 27. Each CTA writes one f32 partial per chunk; a
+//    second pass sums the partials in chunk order, so the result does not
+//    change from run to run (no atomics).
+// One CTA per SM, no cluster: sharing each stage's weights (dW: rows of g)
+// with a second CTA by multicast was slower on the H100, as was gathering
+// the conv's rows per offset straight into swizzled A tiles (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,302 +71,523 @@
 
 namespace {
 
-constexpr int BM = 128;             // output rows per block
-constexpr int KC = 32;              // input channels per pipeline stage
-constexpr int LDS = KC + 8;         // smem row stride (bf16, 80 B): conflict-free ldmatrix
-constexpr int STAGES = 4;
-constexpr int WARPS_M = 4;
-constexpr int WARPS_N = 2;
-constexpr int THREADS = WARPS_M * WARPS_N * 32;
-constexpr int WM = BM / WARPS_M;    // 32 rows per warp
-constexpr int MT = WM / 16;         // m16 tiles per warp
+constexpr int THREADS = CONSUMERS * 128 + PRODUCERS;  // consumer warpgroups, then the producers
+constexpr int SMEM_MAX = 232448;                // shared memory one block may use (227 KB)
+constexpr int BM = 256;                         // conv: output rows per CTA
+constexpr int DW_KR = 64;                       // dW: rows per stage
+constexpr int DW_CM = 128;                      // dW: input channels per CTA (two m64 tiles)
+constexpr int DW_X_BYTES = DW_KR * DW_CM * 2;   // dW: one offset's gathered rows per stage
+constexpr int DW_CHUNK = 8192;                  // dW: most rows per CTA
+constexpr int PRODUCER_REGS = 56;   // setmaxnreg: 256 x 56 + 256 x 200 = 65,536
+constexpr int CONSUMER_REGS = 200;
 
-template <int NT>  // n8 tiles per warp: the block covers BN = WARPS_N * NT * 8 columns
-__global__ void __launch_bounds__(THREADS, 2)
-banded_conv_kernel(const __nv_bfloat16* __restrict__ xb,
-                   const int32_t* __restrict__ nbr,
-                   const __nv_bfloat16* __restrict__ wt, float* __restrict__ y,
-                   int n, int k, int cinp, int cout) {
-  constexpr int BN = WARPS_N * NT * 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][LDS]
-  __nv_bfloat16* b_s = a_s + STAGES * BM * LDS;                 // [STAGES][BN][LDS]
-  int32_t* rows_s = reinterpret_cast<int32_t*>(b_s + STAGES * BN * LDS);  // [BM][k]
+// the 1024-byte aligned start of dynamic shared memory (the swizzled tiles
+// need it)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp % WARPS_M;
-  const int wn = warp / WARPS_M;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-
-  // the block's neighbour indices: one contiguous run of BM * k ints
-  const int64_t base = (int64_t)row0 * k;
-  const int64_t total = (int64_t)n * k;
-  for (int e = tid; e < BM * k; e += THREADS) {
-    rows_s[e] = base + e < total ? nbr[base + e] : -1;
-  }
-  __syncthreads();
-
-  const int nchunks = cinp / KC;
-  const int iters = k * nchunks;
-
-  auto load_stage = [&](int it, int slot) {
-    const int j = it / nchunks;
-    const int c0 = (it - j * nchunks) * KC;
-    __nv_bfloat16* as = a_s + slot * BM * LDS;
-    __nv_bfloat16* bs = b_s + slot * BN * LDS;
-    // BM gathered rows x KC channels, 16 B (8 channels) per copy; an absent
-    // neighbour copies 0 bytes and zero-fills
-    for (int e = tid; e < BM * (KC / 8); e += THREADS) {
-      const int r = e >> 2;
-      const int q = e & 3;
-      const int src = rows_s[r * k + j];
-      const __nv_bfloat16* g = xb + (int64_t)max(src, 0) * cinp + c0 + q * 8;
-      cp_async16(as + r * LDS + q * 8, g, src >= 0 ? 16 : 0);
-    }
-    // BN output columns x KC channels of w[j]^T
-    for (int e = tid; e < BN * (KC / 8); e += THREADS) {
-      const int o = e >> 2;
-      const int q = e & 3;
-      const int col = col0 + o;
-      const __nv_bfloat16* g =
-          wt + ((int64_t)j * cout + min(col, cout - 1)) * cinp + c0 + q * 8;
-      cp_async16(bs + o * LDS + q * 8, g, col < cout ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
+// stores one accumulator tile of a consumer warpgroup: rows r0 + the
+// layout's row, columns col0 + the layout's column, where the row is below
+// `rows` and the column below `cols`; `out` rows have stride `ld`
+template <int N>
+__device__ __forceinline__ void store_tile(const float (&d)[N / 2], float* out,
+                                           int64_t ld, int r0, int rows,
+                                           int col0, int cols, int wtid) {
+  const int warp = wtid >> 5;
+  const int lane = wtid & 31;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + warp * 16 + (lane >> 2) + h * 8;
+    if (r >= rows) continue;
+    float* row = out + r * ld;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < iters) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < iters; ++it) {
-    cp_async_wait<STAGES - 2>();  // stage `it` has landed (for this thread)
-    __syncthreads();              // ... for every thread; slot it-1 is free
-    const int nxt = it + STAGES - 1;
-    if (nxt < iters) load_stage(nxt, nxt % STAGES);
-    cp_async_commit();
-
-    const int slot = it % STAGES;
-    const __nv_bfloat16* as = a_s + slot * BM * LDS + (wm * WM) * LDS;
-    const __nv_bfloat16* bs = b_s + slot * BN * LDS + (wn * NT * 8) * LDS;
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // matrices: rows 0-7 / 8-15 of the m16 tile at k 0-7, then at k 8-15
-        ldmatrix_x4(af[mt], as + (mt * 16 + (lane & 15)) * LDS + ks + (lane >> 4) * 8);
-      }
-      const int m = lane >> 3;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // matrices: n-tile 2np at k 0-7 / 8-15, then n-tile 2np+1
-        uint32_t bf[4];
-        ldmatrix_x4(bf, bs + (np * 16 + (m >> 1) * 8 + (lane & 7)) * LDS + ks + (m & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16_16816(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16_16816(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = col0 + wn * NT * 8 + nt * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + wm * WM + mt * 16 + grp + h * 8;
-        if (r < n) {
-          float* out = y + (int64_t)r * cout;
-          if (col < cout) out[col] = acc[mt][nt][2 * h];
-          if (col + 1 < cout) out[col + 1] = acc[mt][nt][2 * h + 1];
-        }
+    for (int i = 0; i < N / 8; ++i) {
+      const int col = col0 + i * 8 + (lane & 3) * 2;
+      const float v0 = d[4 * i + 2 * h];
+      const float v1 = d[4 * i + 2 * h + 1];
+      if ((ld & 1) == 0 && col + 1 < cols) {
+        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+      } else {
+        if (col < cols) row[col] = v0;
+        if (col + 1 < cols) row[col + 1] = v1;
       }
     }
   }
 }
 
-template <int NT>
-int launch_conv(const __nv_bfloat16* xb, const int32_t* nbr,
-                const __nv_bfloat16* wt, float* y, int n, int k, int cinp,
-                int cout, cudaStream_t stream) {
-  constexpr int BN = WARPS_N * NT * 8;
-  const size_t smem = (size_t)STAGES * (BM + BN) * LDS * sizeof(__nv_bfloat16)
-                      + (size_t)BM * k * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Launches `kern` over `grid` with `smem` bytes of dynamic shared memory.
+template <class Kern, class... Args>
+int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BM - 1) / BM, (cout + BN - 1) / BN);
-  banded_conv_kernel<NT><<<grid, THREADS, smem, stream>>>(xb, nbr, wt, y, n, k,
-                                                           cinp, cout);
+  kern<<<grid, THREADS, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int DW_KR = 32;        // reduction rows (m) per pipeline stage
-constexpr int DW_CHUNK = 8192;   // most rows per block; their indices sit in smem
-constexpr int DW_LDX = BM + 8;   // x-tile row stride (bf16): conflict-free ldmatrix
+// The neighbour indices of the CTA's rows row0 .. row0 + 256 into shared
+// memory (-1 past n): 16-byte copies where the rows are whole and both ends
+// aligned, else one index per thread and step.
+__device__ __forceinline__ void stage_indices(int32_t* idx_s, const int32_t* nbr,
+                                              int row0, int n, int k, int tid) {
+  const int64_t base = (int64_t)row0 * k;
+  const int32_t* src = nbr + base;
+  if (row0 + BM <= n
+      && ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(idx_s)) & 15) == 0) {
+#pragma unroll 4
+    for (int e = tid; e < BM * k / 4; e += THREADS) {
+      reinterpret_cast<int4*>(idx_s)[e] = reinterpret_cast<const int4*>(src)[e];
+    }
+  } else {
+    const int64_t total = (int64_t)n * k;
+    for (int e = tid; e < BM * k; e += THREADS) idx_s[e] = base + e < total ? src[e] : -1;
+  }
+}
+
+// output columns per CTA of the conv: the narrowest wgmma width that holds
+// cout, at most 128 (ops/banded_conv.py::conv_tile_n)
+int conv_tile_n(int cout) {
+  return cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 96 ? 96 : 128;
+}
+
+// ---------------------------------------------------------------------------
+// The conv: windows of sorted rows, A from registers (ldmatrix by row
+// address), each window copied once for all offsets of its dx
+// ---------------------------------------------------------------------------
+
+constexpr int LDW = 144;                     // window row stride: 64 channels + 16 B (conflict-free ldmatrix)
+constexpr int WIN_SLOTS = 2;                 // window buffers
+constexpr int WPRODUCERS = PRODUCERS - 32;   // window producers: all producer warps but the weights' one
+
+// bytes of dynamic shared memory of the window kernel besides its windows
+size_t win_fixed_smem(int bn, int k, bool idx) {
+  return 1024 + (size_t)RING * bn * 128
+         + (2 * RING + 2 * WIN_SLOTS) * sizeof(uint64_t) + 2 * (size_t)k * sizeof(int32_t)
+         + (idx ? (size_t)BM * k * sizeof(int32_t) : 0);
+}
+
+// rows a window buffer holds (a zero row follows them) in what is left
+int win_rows(int bn, int k, bool idx) {
+  const long left = (long)SMEM_MAX - (long)win_fixed_smem(bn, k, idx);
+  return static_cast<int>(left / (WIN_SLOTS * LDW)) - 1;
+}
+
+// y[row0 .. row0 + 256, tile's BN columns]. Offsets come in groups of kg
+// (those of one dx: their neighbours of the CTA's rows lie in one band of
+// sorted rows). For each group and 64-channel slice, the CTA copies the
+// window [lo, hi] of its present neighbours once, and each of the
+// group's offsets reads its A fragments from it by row address (an
+// absent neighbour reads a zero row). A group whose window exceeds wmax
+// rows falls back, in this CTA, to one window per offset holding its 256
+// gathered rows. Weights: a ring of one stage per (offset, slice), kept
+// full by one producer thread.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+banded_conv_kernel(const __nv_bfloat16* __restrict__ xb,
+                   const int32_t* __restrict__ nbr,
+                   const __nv_bfloat16* __restrict__ wimg,
+                   float* __restrict__ y, int n, int k, int cinp, int cout,
+                   int nsl, int kg, int wmax, int idx_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wrows = wmax + 1;
+  const int ngroups = k / kg;
+  unsigned char* b_s = aligned_smem(smem_raw);            // [RING][BN rows][128 B]
+  unsigned char* win_s = b_s + RING * BN * 128;           // [2][wmax + 1 rows][144 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(win_s + WIN_SLOTS * wrows * LDW);
+  const Ring ring{bars, bars + RING};
+  uint64_t* wfull = bars + 2 * RING;
+  uint64_t* wempty = wfull + WIN_SLOTS;
+  int32_t* idx_s = reinterpret_cast<int32_t*>(wempty + WIN_SLOTS);  // [256][k]
+  int32_t* lo_s = idx_s + (idx_smem ? BM * k : 0);                  // [ngroups]
+  int32_t* hi_s = lo_s + k;                                         // [ngroups]
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * BM;
+  const int tile = blockIdx.y;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < WIN_SLOTS; ++s) {
+      mbar_init(&wfull[s], WPRODUCERS);
+      mbar_init(&wempty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  for (int c = tid; c < ngroups; c += THREADS) {
+    lo_s[c] = 0x7fffffff;
+    hi_s[c] = -1;
+  }
+  for (int e = tid; e < WIN_SLOTS * (LDW / 16); e += THREADS) {  // the zero rows
+    const int slot = e / (LDW / 16);
+    *reinterpret_cast<uint4*>(win_s + ((int64_t)slot * wrows + wmax) * LDW
+                              + (e - slot * (LDW / 16)) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  const int32_t* idx = nbr + (int64_t)row0 * k;
+  if (idx_smem) {
+    stage_indices(idx_s, nbr, row0, n, k, tid);
+    idx = idx_s;
+  }
+  __syncthreads();
+  // each group's window: the least and greatest present neighbour
+  if (tid < BM) {
+    const bool live = row0 + tid < n;
+    for (int c = 0; c < ngroups; ++c) {
+      int lo = 0x7fffffff, hi = -1;
+      for (int jj = 0; live && jj < kg; ++jj) {
+        const int v = idx[tid * k + c * kg + jj];
+        if (v >= 0) {
+          lo = min(lo, v);
+          hi = max(hi, v);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      if ((tid & 31) == 0) {
+        atomicMin(&lo_s[c], lo);
+        atomicMax(&hi_s[c], hi);
+      }
+    }
+  }
+  __syncthreads();  // barriers, indices and windows ready
+  // a group's window fits (an empty one: hi - lo + 1 < 0)
+  auto banded = [&](int c) { return hi_s[c] - lo_s[c] + 1 <= wmax; };
+
+  if (tid >= CONSUMERS * 128) {
+    regs_dec<PRODUCER_REGS>();
+    const int ptid = tid - CONSUMERS * 128;
+    if (ptid == 0) {
+      // the weights: one stage per (offset, slice) in the consumers' order
+      const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(
+          wimg + (int64_t)tile * k * nsl * BN * 64);
+      int it = 0;
+      for (int c = 0; c < ngroups; ++c) {
+        for (int sl = 0; sl < nsl; ++sl) {
+          for (int jj = 0; jj < kg; ++jj, ++it) {
+            const int s = Ring::slot(it);
+            const int st = (c * kg + jj) * nsl + sl;
+            mbar_wait(&ring.empty[s], Ring::parity(it) ^ 1);
+            mbar_expect_tx(&ring.full[s], BN * 128);
+            bulk_copy(b_s + s * BN * 128, wsrc + (int64_t)st * BN * 128, BN * 128,
+                      &ring.full[s]);
+          }
+        }
+      }
+    } else if (ptid >= 32) {
+      // the windows, 16 bytes per cp.async, in the consumers' order
+      const int wp = ptid - 32;
+      int wi = 0;
+      auto fill = [&](auto copy) {
+        const int slot = wi % WIN_SLOTS;
+        mbar_wait(&wempty[slot], ((wi / WIN_SLOTS) & 1) ^ 1);
+        copy(win_s + (int64_t)slot * wrows * LDW);
+        cp_async_arrive(&wfull[slot]);
+        ++wi;
+      };
+      for (int c = 0; c < ngroups; ++c) {
+        const bool band = banded(c);
+        const int lo = lo_s[c];
+        const int len = band ? max(hi_s[c] - lo + 1, 0) : 0;
+        for (int sl = 0; sl < nsl; ++sl) {
+          const int c0 = sl * 64;
+          const int pieces = min(64, cinp - c0) / 8;
+          if (band) {
+            fill([&](unsigned char* win) {
+              for (int e = wp; e < len * pieces; e += WPRODUCERS) {
+                const int r = e / pieces;
+                const int q = e - r * pieces;
+                cp_async16(win + r * LDW + q * 16,
+                           xb + (int64_t)(lo + r) * cinp + c0 + q * 8, 16);
+              }
+            });
+          } else {
+            for (int jj = 0; jj < kg; ++jj) {
+              const int j = c * kg + jj;
+              fill([&](unsigned char* win) {
+                for (int e = wp; e < BM * pieces; e += WPRODUCERS) {
+                  const int r = e / pieces;
+                  const int q = e - r * pieces;
+                  const int v = row0 + r < n ? idx[r * k + j] : -1;
+                  cp_async16(win + r * LDW + q * 16,
+                             xb + (int64_t)max(v, 0) * cinp + c0 + q * 8, v >= 0 ? 16 : 0);
+                }
+              });
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows row0 + 128 wg .. + 128 (two m64
+    // tiles); this lane addresses rows rr and rr + 64 of the CTA for ldmatrix
+    regs_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int wtid = tid & 127;
+    const int lane = wtid & 31;
+    const int rr = wg * 128 + (wtid >> 5) * 16 + (lane & 15);
+    float acc[2][BN / 2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+    }
+    int it = 0;
+    // offset j's products for slice sl from window `win` (rows from lo, or
+    // the CTA's gathered rows when !band)
+    auto compute = [&](int j, int sl, const unsigned char* win, int lo, bool band) {
+      const int s = Ring::slot(it);
+      const int ksteps = min(64, cinp - sl * 64) / 16;
+      const unsigned char* arow[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = rr + mt * 64;
+        int wr = r;
+        if (band) {
+          const int v = row0 + r < n ? idx[r * k + j] : -1;
+          wr = v >= 0 ? v - lo : wmax;
+        }
+        arow[mt] = win + wr * LDW + (lane >> 4) * 16;
+      }
+      uint32_t af[4][2][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks < ksteps) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(af[ks][mt], arow[mt] + ks * 32);
+        }
+      }
+      mbar_wait(&ring.full[s], Ring::parity(it));
+      const unsigned char* bs = b_s + s * BN * 128;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks < ksteps) {
+          const uint64_t db = smem_desc(bs + ks * 32, 16, 1024);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) wgmma_rs_bf16<BN, 0>(acc[mt], af[ks][mt], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      ring_release(ring, s, wtid);
+      ++it;
+    };
+    int wi = 0;
+    auto window = [&](auto body) {
+      const int slot = wi % WIN_SLOTS;
+      mbar_wait(&wfull[slot], (wi / WIN_SLOTS) & 1);
+      body(win_s + (int64_t)slot * wrows * LDW);
+      if (wtid == 0) mbar_arrive(&wempty[slot]);
+      ++wi;
+    };
+    for (int c = 0; c < ngroups; ++c) {
+      const bool band = banded(c);
+      const int lo = lo_s[c];
+      for (int sl = 0; sl < nsl; ++sl) {
+        if (band) {
+          window([&](const unsigned char* win) {
+            for (int jj = 0; jj < kg; ++jj) compute(c * kg + jj, sl, win, lo, true);
+          });
+        } else {
+          for (int jj = 0; jj < kg; ++jj) {
+            window([&](const unsigned char* win) { compute(c * kg + jj, sl, win, 0, false); });
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      store_tile<BN>(acc[mt], y, cout, row0 + wg * 128 + mt * 64, n, tile * BN,
+                     cout, wtid);
+    }
+  }
+  __syncthreads();  // no producer leaves before the copies it issued landed
+}
+
+template <int BN>
+int launch_conv(const __nv_bfloat16* xb, const int32_t* nbr,
+                const __nv_bfloat16* wimg, float* y, int n, int k, int cinp,
+                int cout, int nsl, int kg, cudaStream_t stream) {
+  bool idx = true;
+  int wmax = win_rows(BN, k, idx);
+  if (wmax < BM) {
+    idx = false;
+    wmax = win_rows(BN, k, idx);
+  }
+  if (wmax < BM) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = win_fixed_smem(BN, k, idx) + (size_t)WIN_SLOTS * (wmax + 1) * LDW;
+  return launch(banded_conv_kernel<BN>, dim3((n + BM - 1) / BM, (cout + BN - 1) / BN),
+                smem, stream, xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, wmax,
+                static_cast<int>(idx));
+}
+
+int dispatch_conv(const __nv_bfloat16* xb, const int32_t* nbr,
+                  const __nv_bfloat16* wimg, float* y, int n, int k, int cinp,
+                  int cout, int nsl, int kg, cudaStream_t stream) {
+  switch (conv_tile_n(cout)) {
+    case 32: return launch_conv<32>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
+    case 64: return launch_conv<64>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
+    case 96: return launch_conv<96>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
+    default: return launch_conv<128>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
+  }
+}
+
+// bytes of dynamic shared memory of the dW kernel: alignment slack, the
+// ring (rows of g, and each offset's gathered rows of x) and its barriers
+size_t dw_smem(int bn) {
+  return 1024 + (size_t)RING * (((bn + 63) / 64) * 8192 + CONSUMERS * DW_X_BYTES)
+         + 2 * RING * sizeof(uint64_t);
+}
 
 // part[chunk, j, c, o] = sum over the chunk's rows m of
 //   bf16(x[nbr[m, j], c]) * bf16(g[m, o])
-// for the block's 128 channels c (blockIdx.z % ctiles) and BN columns o.
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 2)
+// for the CTA's offsets j = 2 blockIdx.x + {0, 1} (one consumer warpgroup
+// each), 128 channels c and BN columns o (blockIdx.z = ctile + ctiles *
+// otile); stage it = the chunk's rows 64 it .. + 64
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
 banded_conv_dw_kernel(const __nv_bfloat16* __restrict__ xb,
                       const int32_t* __restrict__ nbr,
-                      const __nv_bfloat16* __restrict__ gb,
+                      const __nv_bfloat16* __restrict__ gimg,
                       float* __restrict__ part, int n, int k, int cin,
-                      int cinp, int cout, int coutp, int chunk) {
-  constexpr int BN = WARPS_N * NT * 8;
-  constexpr int LDG = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][KR][LDX]
-  __nv_bfloat16* g_s = x_s + STAGES * DW_KR * DW_LDX;           // [STAGES][KR][LDG]
-  int32_t* rows_s = reinterpret_cast<int32_t*>(g_s + STAGES * DW_KR * LDG);  // [chunk]
+                      int cinp, int cout, int chunk, int ctiles, int otiles) {
+  constexpr int NA = (BN + 63) / 64;   // 64-column atoms of the g tile
+  constexpr int G_BYTES = NA * 8192;   // a stage's rows of g
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* g_s = aligned_smem(smem_raw);            // [RING][NA][64 rows][128 B]
+  unsigned char* x_s = g_s + RING * G_BYTES;              // [RING][2][2 atoms][64 rows][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(x_s + RING * CONSUMERS * DW_X_BYTES);
+  const Ring ring{bars, bars + RING};
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp % WARPS_M;
-  const int wn = warp / WARPS_M;
-  const int j = blockIdx.x;
+  const int j0 = blockIdx.x * CONSUMERS;
   const int ch = blockIdx.y;
-  const int ctiles = (cinp + BM - 1) / BM;
-  const int c0 = (blockIdx.z % ctiles) * BM;
-  const int o0 = (blockIdx.z / ctiles) * BN;
+  const int ct = blockIdx.z % ctiles;
+  const int ot = blockIdx.z / ctiles;
+  const int c0 = ct * DW_CM;
   const int m0 = ch * chunk;
   const int rows = min(chunk, n - m0);
-
-  // the chunk's neighbour rows under offset j (a strided column of nbr;
-  // the other offsets' blocks read the same lines)
-  for (int e = tid; e < rows; e += THREADS) {
-    rows_s[e] = nbr[(int64_t)(m0 + e) * k + j];
-  }
-  __syncthreads();
-
   const int iters = (rows + DW_KR - 1) / DW_KR;
+  if (tid == 0) ring_init(ring);
+  __syncthreads();  // barriers ready
 
-  auto load_stage = [&](int it, int slot) {
-    const int r0 = it * DW_KR;
-    __nv_bfloat16* xs = x_s + slot * DW_KR * DW_LDX;
-    __nv_bfloat16* gs = g_s + slot * DW_KR * LDG;
-    // KR gathered rows x 128 channels, 16 B (8 channels) per copy
-    for (int e = tid; e < DW_KR * (BM / 8); e += THREADS) {
-      const int r = e / (BM / 8);
-      const int q = e % (BM / 8);
-      const int m = r0 + r;
-      const int src = m < rows ? rows_s[m] : -1;
-      const int c = c0 + q * 8;
-      const bool ok = src >= 0 && c < cinp;
-      const __nv_bfloat16* p =
-          xb + (int64_t)max(src, 0) * cinp + (ok ? c : 0);
-      cp_async16(xs + r * DW_LDX + q * 8, p, ok ? 16 : 0);
-    }
-    // the same KR rows of g, BN columns
-    for (int e = tid; e < DW_KR * (BN / 8); e += THREADS) {
-      const int r = e / (BN / 8);
-      const int q = e % (BN / 8);
-      const int m = r0 + r;
-      const int col = o0 + q * 8;
-      const bool ok = m < rows && col < coutp;
-      const __nv_bfloat16* p =
-          gb + (int64_t)(ok ? m0 + m : 0) * coutp + (ok ? col : 0);
-      cp_async16(gs + r * LDG + q * 8, p, ok ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
+  if (tid >= CONSUMERS * 128) {
+    // producer: the stage's rows of g and, per offset, 64 gathered rows of x
+    regs_dec<PRODUCER_REGS>();
+    const int ptid = tid - CONSUMERS * 128;
+    const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(
+        gimg + ((int64_t)(m0 / DW_KR) * otiles * NA + ot * NA) * 64 * 64);
+    const int64_t gstep = (int64_t)otiles * NA * 8192;  // bytes per 64 rows of the image
+    auto shared = [&](int it, int s) {
+      bulk_copy(g_s + s * G_BYTES, gsrc + it * gstep, G_BYTES, &ring.full[s]);
+    };
+    // piece q = ptid % 16 of rows ptid / 16 + 16 i of each offset (the rows
+    // share r % 8, so one swizzle); each stage's indices are loaded while
+    // the stage before issues its copies
+    constexpr int PER = DW_KR * 16 / PRODUCERS;
+    constexpr int STEP = PRODUCERS / 16;
+    const int q = ptid & 15;
+    const int rt = ptid >> 4;
+    const int c = c0 + q * 8;
+    int next[CONSUMERS][PER];
+    auto load_indices = [&](int it) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int w = 0; w < CONSUMERS; ++w) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < iters) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // ldmatrix.trans addressing: lane t points at row t & 7 of matrix t >> 3
-  const int mat = lane >> 3;
-  const int mrow = lane & 7;
-  for (int it = 0; it < iters; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = it + STAGES - 1;
-    if (nxt < iters) load_stage(nxt, nxt % STAGES);
-    cp_async_commit();
-
-    const int slot = it % STAGES;
-    const __nv_bfloat16* xs = x_s + slot * DW_KR * DW_LDX + wm * WM;
-    const __nv_bfloat16* gs = g_s + slot * DW_KR * LDG + wn * NT * 8;
-#pragma unroll
-    for (int ks = 0; ks < DW_KR; ks += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // A = x^T: matrices (channels 0-7 / 8-15) x (rows 0-7), then rows 8-15
-        ldmatrix_x4_trans(af[mt], xs + (ks + (mat >> 1) * 8 + mrow) * DW_LDX
-                                      + mt * 16 + (mat & 1) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // B = g: n-tile 2np at rows 0-7 / 8-15, then n-tile 2np+1
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, gs + (ks + (mat & 1) * 8 + mrow) * LDG
-                                  + np * 16 + (mat >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16_16816(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16_16816(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        for (int i = 0; i < PER; ++i) {
+          const int m = it * DW_KR + rt + i * STEP;
+          next[w][i] = j0 + w < k && m < rows && c < cinp
+                           ? nbr[(int64_t)(m0 + m) * k + j0 + w] : -1;
         }
       }
-    }
-  }
-  cp_async_wait<0>();
-
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  float* out = part + ((int64_t)ch * k + j) * cin * cout;
+    };
+    load_indices(0);
+    auto gather = [&](int it, int s) {
+      int src[CONSUMERS][PER];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int w = 0; w < CONSUMERS; ++w) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int o = o0 + wn * NT * 8 + nt * 8 + tig * 2;
+        for (int i = 0; i < PER; ++i) src[w][i] = next[w][i];
+      }
+      if (it + 1 < iters) load_indices(it + 1);
+      const uint32_t dst = smem_u32(x_s + s * CONSUMERS * DW_X_BYTES) + (q >> 3) * 8192
+                           + swz(rt, q & 7);
+      const __nv_bfloat16* base = xb + (c < cinp ? c : 0);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = c0 + wm * WM + mt * 16 + grp + h * 8;
-        if (c < cin) {
-          float* row = out + (int64_t)c * cout;
-          if (o < cout) row[o] = acc[mt][nt][2 * h];
-          if (o + 1 < cout) row[o + 1] = acc[mt][nt][2 * h + 1];
+      for (int w = 0; w < CONSUMERS; ++w) {
+        if (j0 + w >= k) continue;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          cp_async16_s(dst + w * DW_X_BYTES + i * STEP * 128,
+                       base + (int64_t)max(src[w][i], 0) * cinp, src[w][i] >= 0 ? 16 : 0);
         }
+      }
+      cp_async_arrive(&ring.full[s]);
+    };
+    ring_produce(ring, iters, ptid, G_BYTES, shared, gather);
+  } else {
+    // consumers: warpgroup wg owns offset j0 + wg, channels c0 .. c0 + 128
+    // (two m64 tiles of A = x^T) and the tile's BN columns
+    regs_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int wtid = tid & 127;
+    const int j = j0 + wg;
+    float acc[2][BN / 2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+    }
+    for (int it = 0; it < iters; ++it) {
+      const int s = Ring::slot(it);
+      ring_wait(ring, it);
+      if (j >= k) {  // no offset here: keep the ring's count
+        ring_release(ring, s, wtid);
+        continue;
+      }
+      const unsigned char* gs = g_s + s * G_BYTES;
+      const unsigned char* xs = x_s + (s * CONSUMERS + wg) * DW_X_BYTES;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DW_KR / 16; ++ks) {
+        const uint64_t db = smem_desc(gs + ks * 2048, 8192, 1024);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          wgmma_bf16<BN, 1, 1>(acc[mt], smem_desc(xs + mt * 8192 + ks * 2048, 8192, 1024),
+                               db);
+        }
+      }
+      wgmma_commit();
+      // one stage's products stay in flight: the previous stage's are done,
+      // and its slot is free
+      wgmma_wait<1>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (it > 0) ring_release(ring, Ring::slot(it - 1), wtid);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (j < k) {
+      float* out = part + ((int64_t)ch * k + j) * cin * cout;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        store_tile<BN>(acc[mt], out, cout, c0 + mt * 64, cin, ot * BN, cout, wtid);
       }
     }
   }
+  __syncthreads();  // no producer leaves before the copies it issued landed
 }
 
 // out[e] = sum_{p < nparts} part[p, e], in order p = 0, 1, ...
@@ -376,69 +602,81 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
   }
 }
 
-template <int NT>
+// output columns per CTA of dW: 64, 96 or 128 (ops/banded_conv.py::dw_tile_n)
+int dw_tile_n(int cout) { return cout <= 64 ? 64 : cout <= 96 ? 96 : 128; }
+
+template <int BN>
 int launch_dw(const __nv_bfloat16* xb, const int32_t* nbr,
-              const __nv_bfloat16* gb, float* part, int n, int k, int cin,
-              int cinp, int cout, int coutp, int chunk, cudaStream_t stream) {
-  constexpr int BN = WARPS_N * NT * 8;
-  const size_t smem =
-      (size_t)STAGES * DW_KR * (DW_LDX + BN + 8) * sizeof(__nv_bfloat16)
-      + (size_t)chunk * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_conv_dw_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctiles = (cinp + BM - 1) / BM;
+              const __nv_bfloat16* gimg, float* part, int n, int k, int cin,
+              int cinp, int cout, int chunk, cudaStream_t stream) {
+  const int ctiles = (cinp + DW_CM - 1) / DW_CM;
   const int otiles = (cout + BN - 1) / BN;
-  const dim3 grid(k, (n + chunk - 1) / chunk, ctiles * otiles);
-  banded_conv_dw_kernel<NT><<<grid, THREADS, smem, stream>>>(
-      xb, nbr, gb, part, n, k, cin, cinp, cout, coutp, chunk);
-  return static_cast<int>(cudaGetLastError());
+  return launch(banded_conv_dw_kernel<BN>,
+                dim3((k + CONSUMERS - 1) / CONSUMERS, (n + chunk - 1) / chunk,
+                     ctiles * otiles),
+                dw_smem(BN), stream, xb, nbr, gimg, part, n, k, cin, cinp, cout, chunk,
+                ctiles, otiles);
+}
+
+int dispatch_dw(const __nv_bfloat16* xb, const int32_t* nbr,
+                const __nv_bfloat16* gimg, float* part, int n, int k, int cin,
+                int cinp, int cout, int chunk, cudaStream_t stream) {
+  switch (dw_tile_n(cout)) {
+    case 64: return launch_dw<64>(xb, nbr, gimg, part, n, k, cin, cinp, cout, chunk, stream);
+    case 96: return launch_dw<96>(xb, nbr, gimg, part, n, k, cin, cinp, cout, chunk, stream);
+    default: return launch_dw<128>(xb, nbr, gimg, part, n, k, cin, cinp, cout, chunk, stream);
+  }
 }
 
 }  // namespace
 
-// x [n, cin] f32, nbr [n, k] i32, w [k, cin, cout] f32, y [n, cout] f32;
-// scratch xb [n, cinp] bf16 and wt [k, cout, cinp] bf16 with cinp a
-// multiple of 32 and >= cin. All contiguous on the current device. Returns
-// the CUDA error of the launches (0 = launched).
+// x [n, cin] f32, nbr [n, k] i32, w [k, cin, cout] f32 (with `flip`: a
+// forward's [k, cout, cin], used as flip(w, 0).transpose(1, 2)), y [n, cout]
+// f32; scratch xb [n, cinp] bf16 with cinp a multiple of 16 and >= cin, and
+// wimg, the weights' image: ceil(cout / bn) * k * ceil(cinp / 64) * bn * 64
+// bf16 with bn = conv_tile_n(cout). All contiguous on the current device.
+// Returns the CUDA error of the launches (0 = launched).
 extern "C" int agile3d_banded_conv(const void* x, const void* nbr,
-                                   const void* w, void* y, void* xb, void* wt,
+                                   const void* w, void* y, void* xb, void* wimg,
                                    int n, int k, int cin, int cinp, int cout,
-                                   void* stream_ptr) {
-  if (cinp % KC != 0 || cinp < cin || k <= 0) {
+                                   int flip, void* stream_ptr) {
+  if (cinp % 16 != 0 || cinp < cin || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0 || cout <= 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
-  auto* wtp = static_cast<__nv_bfloat16*>(wt);
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp), 256, 0, stream>>>(
+  auto* wip = static_cast<__nv_bfloat16*>(wimg);
+  const int nsl = (cinp + 63) / 64;
+  const int bn = conv_tile_n(cout);
+  const int ntiles = (cout + bn - 1) / bn;
+  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(
       static_cast<const float*>(x), xbp, n, cin, cinp);
-  cast_weights_kernel<<<grid_for((int64_t)k * cout * cinp), 256, 0, stream>>>(
-      static_cast<const float*>(w), wtp, k, cin, cinp, cout);
+  cast_weight_image_kernel<<<grid_for((int64_t)ntiles * k * nsl * bn * 8), 256, 0,
+                             stream>>>(static_cast<const float*>(w), wip, k, cin,
+                                       cout, bn, nsl, ntiles, flip);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* nb = static_cast<const int32_t*>(nbr);
-  auto* yp = static_cast<float*>(y);
-  if (cout <= 32) return launch_conv<2>(xbp, nb, wtp, yp, n, k, cinp, cout, stream);
-  if (cout <= 64) return launch_conv<4>(xbp, nb, wtp, yp, n, k, cinp, cout, stream);
-  if (cout <= 96) return launch_conv<6>(xbp, nb, wtp, yp, n, k, cinp, cout, stream);
-  return launch_conv<8>(xbp, nb, wtp, yp, n, k, cinp, cout, stream);
+  int s = 1;
+  while ((s + 1) * (s + 1) * (s + 1) <= k) ++s;
+  const int kg = s * s * s == k ? s * s : 1;  // offsets of one dx
+  return dispatch_conv(xbp, static_cast<const int32_t*>(nbr), wip, static_cast<float*>(y),
+                       n, k, cinp, cout, nsl, kg, stream);
 }
 
 // x [n, cin] f32, nbr [n, k] i32, g [n, cout] f32, dw [k, cin, cout] f32;
-// scratch xb [n, cinp] bf16, gb [n, coutp] bf16 (cinp, coutp multiples of
-// 8, >= cin, cout) and part [ceil(n / chunk), k, cin, cout] f32, with
-// 32 <= chunk <= 8192. All contiguous on the current device. Returns the
-// CUDA error of the launches (0 = launched).
+// scratch xb [n, cinp] bf16 (cinp a multiple of 8, >= cin), gimg, the image
+// of g: ceil(n / 64) * 64 * ceil(cout / bn) * ceil(bn / 64) * 64 bf16 with
+// bn = dw_tile_n(cout), and part [ceil(n / chunk), k, cin, cout] f32, with
+// chunk a multiple of 64 up to 8192. All contiguous on the current device.
+// Returns the CUDA error of the launches (0 = launched).
 extern "C" int agile3d_banded_conv_dw(const void* x, const void* nbr,
                                       const void* g, void* dw, void* xb,
-                                      void* gb, void* part, int n, int k,
-                                      int cin, int cinp, int cout, int coutp,
-                                      int chunk, void* stream_ptr) {
-  if (cinp % 8 != 0 || cinp < cin || coutp % 8 != 0 || coutp < cout
-      || k <= 0 || chunk < DW_KR || chunk > DW_CHUNK) {
+                                      void* gimg, void* part, int n, int k,
+                                      int cin, int cinp, int cout, int chunk,
+                                      void* stream_ptr) {
+  if (cinp % 8 != 0 || cinp < cin || k <= 0 || chunk % DW_KR != 0
+      || chunk <= 0 || chunk > DW_CHUNK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -449,25 +687,20 @@ extern "C" int agile3d_banded_conv_dw(const void* x, const void* nbr,
         cudaMemsetAsync(dw, 0, per * sizeof(float), stream));
   }
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
-  auto* gbp = static_cast<__nv_bfloat16*>(gb);
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp), 256, 0, stream>>>(
+  auto* gip = static_cast<__nv_bfloat16*>(gimg);
+  const int bn = dw_tile_n(cout);
+  const int na = (bn + 63) / 64;
+  const int otiles = (cout + bn - 1) / bn;
+  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(
       static_cast<const float*>(x), xbp, n, cin, cinp);
-  cast_rows_kernel<<<grid_for((int64_t)n * coutp), 256, 0, stream>>>(
-      static_cast<const float*>(g), gbp, n, cout, coutp);
+  cast_row_image_kernel<<<grid_for((int64_t)(n + 63) / 64 * otiles * na * 512), 256,
+                          0, stream>>>(static_cast<const float*>(g), gip, n, cout,
+                                       bn, na, otiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* nb = static_cast<const int32_t*>(nbr);
   auto* pp = static_cast<float*>(part);
-  int rc;
-  if (cout <= 32) {
-    rc = launch_dw<2>(xbp, nb, gbp, pp, n, k, cin, cinp, cout, coutp, chunk, stream);
-  } else if (cout <= 64) {
-    rc = launch_dw<4>(xbp, nb, gbp, pp, n, k, cin, cinp, cout, coutp, chunk, stream);
-  } else if (cout <= 96) {
-    rc = launch_dw<6>(xbp, nb, gbp, pp, n, k, cin, cinp, cout, coutp, chunk, stream);
-  } else {
-    rc = launch_dw<8>(xbp, nb, gbp, pp, n, k, cin, cinp, cout, coutp, chunk, stream);
-  }
+  const int rc = dispatch_dw(xbp, static_cast<const int32_t*>(nbr), gip, pp, n, k, cin,
+                             cinp, cout, chunk, stream);
   if (rc != 0) return rc;
   const int nparts = (n + chunk - 1) / chunk;
   sum_partials_kernel<<<grid_for(per), 256, 0, stream>>>(

@@ -246,7 +246,7 @@ extern "C" int agile3d_banded_window(const void* x, const void* nbr,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
   auto* wtp = static_cast<__nv_bfloat16*>(wt);
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp), 256, 0, stream>>>(
+  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(
       static_cast<const float*>(x), xbp, n, cin, cinp);
   cast_weights_kernel<<<grid_for((int64_t)k * cout * cinp), 256, 0, stream>>>(
       static_cast<const float*>(w), wtp, k, cin, cinp, cout);

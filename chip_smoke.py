@@ -175,7 +175,9 @@ def phase_device(torch, cuda_build):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "built": sorted(reports),
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if any(w in ln for w in ("entry function",
+                                                 "registers", "spill",
+                                                 "warning"))]
                     for k, v in reports.items()}})
 
 
@@ -224,15 +226,24 @@ def phase_kernels(torch, cases):
         n, k = nbr.shape
         x = torch.randn((n, cin), generator=g, device=DEVICE)
         x[lv.num_valid:] = 0.0
+        opts = {}
         if name == "banded_conv_dw":
             # the cotangent of the conv's output: zero on pad rows
             other = torch.randn((n, cout), generator=g, device=DEVICE)
             other[lv.num_valid:] = 0.0
+        elif role == "dX":
+            # as BandedConv's backward calls it: the forward's [k, cout,
+            # cin] weights, read as flip(w, 0).transpose(1, 2)
+            other = torch.randn((k, cout, cin), generator=g, device=DEVICE) \
+                * (k * cin) ** -0.5
+            opts = {"transposed": True}
         else:
             other = torch.randn((k, cin, cout), generator=g, device=DEVICE) \
                 * (k * cin) ** -0.5
-        y = kern(x, nbr, other)
-        ref = plain(x, nbr, other)
+        run = lambda: kern(x, nbr, other, **opts)
+        plain_other = other.flip(0).transpose(1, 2) if opts else other
+        y = run()
+        ref = plain(x, nbr, plain_other)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         ref_max = float(ref.abs().max())
@@ -252,19 +263,19 @@ def phase_kernels(torch, cases):
             ob = other.to(torch.bfloat16)
             lib = time_ms(torch, lambda: xz[idx].view(n, k * cin).T @ ob)
         else:
-            ob = other.to(torch.bfloat16).reshape(k * cin, cout)
+            ob = plain_other.to(torch.bfloat16).reshape(k * cin, cout)
             lib = time_ms(torch, lambda: xz[idx].view(n, k * cin) @ ob)
         b_ms, b_by = bound(nbr, cin, cout)
         row = dict(kernel=name, role=role, rows=n, cin=cin, cout=cout,
                    count=count, num_valid=lv.num_valid, max_abs_err=err,
                    ref_max=ref_max, tol=tol,
                    rel_err=err / max(ref_max, 1e-30),
-                   ms=time_ms(torch, lambda: kern(x, nbr, other)),
-                   plain_ms=time_ms(torch, lambda: plain(x, nbr, other)),
+                   ms=time_ms(torch, run),
+                   plain_ms=time_ms(torch, lambda: plain(x, nbr, plain_other)),
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernel_parity", **row})
         rows.append(row)
-        del x, other, y, ref, xz, idx, ob
+        del x, other, plain_other, y, ref, xz, idx, ob
         torch.cuda.empty_cache()
     return rows
 

@@ -63,3 +63,26 @@ def test_replaced_tpu_kernels_are_found():
         "tools/probe_banded_kernel.py:99"
     assert chip_smoke.tpu_kernel("probe_vmem_gather.py", "gather_kernel") == \
         "tools/probe_vmem_gather.py:32"
+
+
+@pytest.mark.parametrize("by", ["operations", "bytes"])
+def test_summary_weights_shapes_by_their_launches(by):
+    """The kernels line sums each shape's times over its launches per unit,
+    names the kind of bound that holds the larger share, and leaves out the
+    rows of other roles."""
+    other = "bytes" if by == "operations" else "operations"
+    common = dict(cin=4, cout=8)
+    rows = [dict(role="dW", rows=10, count=3, max_abs_err=1e-6, ms=1.0,
+                 plain_ms=5.0, bound_ms=0.25, bound_by=by, library_ms=2.0,
+                 **common),
+            dict(role="dW", rows=20, count=1, max_abs_err=3e-6, ms=2.0,
+                 plain_ms=7.0, bound_ms=0.5, bound_by=other, library_ms=4.0,
+                 **common),
+            dict(role="eval", rows=30, count=8, max_abs_err=1.0, ms=9.0,
+                 plain_ms=9.0, bound_ms=9.0, bound_by=other, library_ms=9.0,
+                 **common)]
+    s = chip_smoke._summary(rows, ("dW",))
+    assert (s["ms"], s["plain_ms"], s["library_ms"]) == (5.0, 22.0, 10.0)
+    assert s["bound_ms"] == 1.25 and s["bound_by"] == by
+    assert s["max_abs_err"] == 3e-6
+    assert s["shapes"] == "3x 10x4->8 (dW), 1x 20x4->8 (dW)"

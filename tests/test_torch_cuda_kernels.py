@@ -70,10 +70,73 @@ def _check(kernel, plain, x, nbr, w, counter):
     (1000, 128, 96, 27), (300, 40, 200, 27), (777, 3, 20, 27),
     (5000, 64, 32, 8), (4000, 256, 130, 27), (130, 33, 7, 27),
     (2000, 16, 16, 125),
+    # three 256-row tiles, the last one partial
+    (700, 96, 96, 27), (700, 128, 96, 27),
+    # fewer rows than one tile; dX's width (cout 128); cin 33 and 96
+    (100, 64, 128, 27), (1500, 96, 128, 27), (900, 33, 96, 27),
 ])
 def test_banded_conv_matches_plain(card, n, cin, cout, k):
     x, nbr, w = _inputs(n, cin, cout, k, n + cin, card)
     _check(banded_conv, banded_conv_reference, x, nbr, w, banded_conv)
+
+
+@pytest.mark.parametrize("points,cin,cout", [
+    (20000, 96, 96), (20000, 128, 96), (20000, 96, 128), (8000, 33, 200),
+])
+def test_banded_conv_on_scene_maps(card, points, cin, cout):
+    """Banded maps of sorted voxels, where each dx's window of rows fits
+    in shared memory (on the random maps above every window is too long,
+    so each CTA falls back to its gathered rows)."""
+    k3 = _scene_k3(points, cin)
+    g = torch.Generator().manual_seed(points + cout)
+    x = torch.randn(k3.shape[0], cin, generator=g)
+    x[-300:] = 0.0
+    w = torch.randn(27, cin, cout, generator=g) * (27 * cin) ** -0.5
+    x, k3, w = x.to(card), k3.to(card), w.to(card)
+    y = banded_conv(x, k3, w)
+    torch.cuda.synchronize()
+    ref = banded_conv_reference(x, k3, w)
+    err = float((y - ref).abs().max())
+    assert err <= 1e-3 * (float(ref.abs().max()) + 1.0), err
+    assert float(y[-300:].abs().max()) == 0.0
+
+
+def _absent_tiles(nbr):
+    """Every other 64-row tile of the map absent, and no neighbour in the
+    rows of the tiles after them."""
+    nbr = nbr.clone()
+    n = nbr.shape[0]
+    for r0 in range(0, n, 128):
+        nbr[r0:r0 + 64] = -1
+    keep = (torch.arange(n, device=nbr.device) // 64) % 2 == 1
+    nbr[~keep[nbr.clamp(min=0).long()] & (nbr >= 0)] = -1
+    return nbr
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 96), (96, 128)])
+def test_banded_conv_with_absent_tiles(card, cin, cout):
+    x, nbr, w = _inputs(1300, cin, cout, 27, 7, card)
+    nbr = _absent_tiles(nbr)
+    _check(banded_conv, banded_conv_reference, x, nbr, w, banded_conv)
+    y = banded_conv(x, nbr, w)
+    torch.cuda.synchronize()
+    assert float(y[:64].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,cin,cout", [(1000, 128, 96), (700, 96, 96),
+                                        (300, 33, 200)])
+def test_banded_conv_transposed_matches_flipped_weights(card, n, cin, cout):
+    """dX's form: the forward's [k, cout, cin] weights read as
+    flip(w, 0).transpose(1, 2) by the weight cast."""
+    x, nbr, w = _inputs(n, cin, cout, 27, n, card)
+    wf = w.transpose(1, 2).flip(0).contiguous()  # a forward's [k, cout, cin]
+    before = banded_conv.launches
+    y = banded_conv(x, nbr, wf, transposed=True)
+    torch.cuda.synchronize()
+    assert banded_conv.launches == before + 1
+    ref = banded_conv_reference(x, nbr, w)
+    assert float((y - ref).abs().max()) <= 1e-3 * (float(ref.abs().max()) + 1.0)
+    assert float(y[-5:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("n,cout", [(1000, 32), (777, 20), (3000, 40)])
@@ -112,6 +175,9 @@ def test_wrappers_refuse_bad_inputs(card):
     (1000, 128, 96, 27), (300, 40, 200, 27), (777, 3, 20, 27),
     (5000, 64, 32, 8), (4000, 256, 130, 27), (130, 33, 7, 27),
     (2000, 16, 16, 125), (20000, 96, 96, 27),
+    # an odd number of offsets (k 5, 125: a warpgroup with no offset);
+    # fewer rows than a stage; cin 96 and 33 with cout 128
+    (900, 96, 96, 5), (50, 96, 128, 27), (3000, 33, 128, 27),
 ])
 def test_banded_conv_dw_matches_plain(card, n, cin, cout, k):
     """Both sides round the same operands to bf16 and sum in f32 (the
@@ -130,9 +196,22 @@ def test_banded_conv_dw_matches_plain(card, n, cin, cout, k):
     assert torch.equal(banded_conv_dw(x, nbr, g), dw)
 
 
-def test_banded_conv_function_matches_plain_function(card):
+def test_banded_conv_dw_with_absent_tiles(card):
+    x, nbr, _ = _inputs(9000, 128, 96, 27, 3, card)
+    nbr = _absent_tiles(nbr)
+    g = torch.randn(9000, 96, generator=torch.Generator().manual_seed(3)).to(card)
+    dw = banded_conv_dw(x, nbr, g)
+    torch.cuda.synchronize()
+    ref = banded_conv_dw_reference(x, nbr, g)
+    assert float((dw - ref).abs().max()) <= 1e-3 * (float(ref.abs().max()) + 1.0)
+    assert torch.equal(banded_conv_dw(x, nbr, g), dw)
+
+
+@pytest.mark.parametrize("cin,cout", [(96, 64), (96, 128)])
+def test_banded_conv_function_matches_plain_function(card, cin, cout):
     """BandedConv forward and backward on the card against the same
-    Function on the CPU (the plain versions of both kernels)."""
+    Function on the CPU (the plain versions of both kernels); 96 -> 128
+    is the shape whose dX is the eval path's 128 -> 96."""
     from agile3d_torch.sparse.kernel_maps import build_pyramid
     from agile3d_torch.sparse.quantize import sparse_quantize
 
@@ -141,9 +220,9 @@ def test_banded_conv_function_matches_plain_function(card):
     k3 = torch.from_numpy(build_pyramid(vox).levels[0].k3)
     n = k3.shape[0]
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(n, 96, generator=g)
-    w = torch.randn(27, 96, 64, generator=g) * 0.05
-    tgt = torch.randn(n, 64, generator=g)
+    x = torch.randn(n, cin, generator=g)
+    w = torch.randn(27, cin, cout, generator=g) * 0.05
+    tgt = torch.randn(n, cout, generator=g)
     grads = []
     for dev in ("cpu", card):
         xd = x.to(dev, copy=True).requires_grad_()

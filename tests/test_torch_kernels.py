@@ -102,3 +102,70 @@ def test_plain_versions_round_operands_to_bf16():
     w = torch.ones((2, 2, 1))
     y = banded_conv_reference(x, k3, w)
     assert y[0, 0].item() == 3.0 and y[1, 0].item() == 0.0
+
+
+@pytest.mark.parametrize("n,k,cin,cout,want", [
+    (524288, 27, 128, 96, 8192), (524288, 27, 96, 96, 8192),
+    (131072, 27, 96, 96, 6912), (1000, 27, 128, 96, 512),
+    (50, 27, 96, 128, 64), (2000, 125, 16, 16, 512),
+])
+def test_dw_chunk_is_whole_stages(n, k, cin, cout, want):
+    """The dW kernel's rows per CTA: whole 64-row stages, at most
+    DW_MAX_CHUNK, and (above 512 rows a chunk) about two waves of CTAs on
+    132 SMs; pinned at the training shapes."""
+    from agile3d_torch.ops.banded_conv import DW_MAX_CHUNK, dw_chunk, dw_tile_n
+
+    chunk = dw_chunk(n, k, cin, cout)
+    assert chunk == want
+    assert chunk % 64 == 0 and 64 <= chunk <= DW_MAX_CHUNK
+    ctas = -(-n // chunk) * -(-k // 2) * -(-cin // 128) * -(-cout // dw_tile_n(cout))
+    assert chunk == 512 or chunk >= n or ctas >= 264 or chunk == DW_MAX_CHUNK
+
+
+def test_kernel_tiles_and_image_sizes():
+    """Scratch sizes the wrappers allocate for the kernels' shared-memory
+    images, from the tile widths the sources choose."""
+    from agile3d_torch.ops.banded_conv import (
+        conv_cinp,
+        conv_tile_n,
+        dw_tile_n,
+        row_image_numel,
+        weight_image_numel,
+    )
+
+    assert [conv_tile_n(c) for c in (1, 32, 33, 96, 97, 128, 200)] == \
+        [32, 32, 64, 96, 128, 128, 128]
+    assert [dw_tile_n(c) for c in (7, 64, 65, 96, 128, 200)] == \
+        [64, 64, 96, 96, 128, 128]
+    assert [conv_cinp(c) for c in (3, 16, 33, 96, 128)] == [16, 16, 48, 96, 128]
+    # 27 offsets x 2 slices of 64 channels, one 96-column tile
+    assert weight_image_numel(27, 128, 96) == 27 * 2 * 96 * 64
+    # cin 96: slices of 64 and 32 channels, each a 64-channel run
+    assert weight_image_numel(27, 96, 128) == 27 * 2 * 128 * 64
+    # cout 200: two 128-column tiles
+    assert weight_image_numel(8, 40, 200) == 2 * 8 * 1 * 128 * 64
+    # rows padded to 64; cout 96 takes two 64-column atoms, 200 four
+    assert row_image_numel(1000, 96) == 1024 * 2 * 64
+    assert row_image_numel(64, 200) == 64 * 4 * 64
+
+
+def test_transposed_conv_reads_flipped_weights():
+    """dX's form on the CPU: transposed=True with a forward's [k, cout,
+    cin] weights is the conv with flip(w, 0).transpose(1, 2), and
+    BandedConv's dX is that conv of the cotangent."""
+    from agile3d_torch.ops.banded_conv import BandedConv
+
+    rng = np.random.default_rng(5)
+    n, cin, cout = 300, 12, 20
+    k3 = torch.from_numpy(rng.integers(-1, n, (n, 27)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((27, cin, cout)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, cout)).astype(np.float32))
+    launches = banded_conv.launches
+    got = banded_conv(g, k3, w, transposed=True)
+    ref = banded_conv_reference(g, k3, w.flip(0).transpose(1, 2).contiguous())
+    assert torch.equal(got, ref)
+    xg = x.clone().requires_grad_()
+    BandedConv.apply(xg, k3, w).backward(g)
+    assert torch.equal(xg.grad, ref)
+    assert banded_conv.launches == launches
