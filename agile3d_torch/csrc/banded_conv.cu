@@ -51,6 +51,8 @@
 //    shared memory left falls back, in that CTA, to one window per offset
 //    holding its 256 gathered rows. The dX conv reads the forward's weights
 //    through the image cast (flip(w, 0).transpose(1, 2)), with no copy.
+//    The kernel is common.cuh's window_conv_kernel, which the window probe
+//    (banded_window.cu) runs with its windows read from a host plan.
 //  * dW: a CTA owns (a chunk of rows, a group of 2 offsets, 128 input
 //    channels, BN <= 128 output columns), one consumer warpgroup per
 //    offset. One stage = 64 rows: those rows of g (B, MN-major, from the
@@ -71,374 +73,30 @@
 
 namespace {
 
-constexpr int THREADS = CONSUMERS * 128 + PRODUCERS;  // consumer warpgroups, then the producers
-constexpr int SMEM_MAX = 232448;                // shared memory one block may use (227 KB)
-constexpr int BM = 256;                         // conv: output rows per CTA
 constexpr int DW_KR = 64;                       // dW: rows per stage
 constexpr int DW_CM = 128;                      // dW: input channels per CTA (two m64 tiles)
 constexpr int DW_X_BYTES = DW_KR * DW_CM * 2;   // dW: one offset's gathered rows per stage
 constexpr int DW_CHUNK = 8192;                  // dW: most rows per CTA
-constexpr int PRODUCER_REGS = 56;   // setmaxnreg: 256 x 56 + 256 x 200 = 65,536
-constexpr int CONSUMER_REGS = 200;
 
-// the 1024-byte aligned start of dynamic shared memory (the swizzled tiles
-// need it)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
-// stores one accumulator tile of a consumer warpgroup: rows r0 + the
-// layout's row, columns col0 + the layout's column, where the row is below
-// `rows` and the column below `cols`; `out` rows have stride `ld`
-template <int N>
-__device__ __forceinline__ void store_tile(const float (&d)[N / 2], float* out,
-                                           int64_t ld, int r0, int rows,
-                                           int col0, int cols, int wtid) {
-  const int warp = wtid >> 5;
-  const int lane = wtid & 31;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + warp * 16 + (lane >> 2) + h * 8;
-    if (r >= rows) continue;
-    float* row = out + r * ld;
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i) {
-      const int col = col0 + i * 8 + (lane & 3) * 2;
-      const float v0 = d[4 * i + 2 * h];
-      const float v1 = d[4 * i + 2 * h + 1];
-      if ((ld & 1) == 0 && col + 1 < cols) {
-        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
-      } else {
-        if (col < cols) row[col] = v0;
-        if (col + 1 < cols) row[col + 1] = v1;
-      }
-    }
-  }
-}
-
-// Launches `kern` over `grid` with `smem` bytes of dynamic shared memory.
-template <class Kern, class... Args>
-int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, THREADS, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The neighbour indices of the CTA's rows row0 .. row0 + 256 into shared
-// memory (-1 past n): 16-byte copies where the rows are whole and both ends
-// aligned, else one index per thread and step.
-__device__ __forceinline__ void stage_indices(int32_t* idx_s, const int32_t* nbr,
-                                              int row0, int n, int k, int tid) {
-  const int64_t base = (int64_t)row0 * k;
-  const int32_t* src = nbr + base;
-  if (row0 + BM <= n
-      && ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(idx_s)) & 15) == 0) {
-#pragma unroll 4
-    for (int e = tid; e < BM * k / 4; e += THREADS) {
-      reinterpret_cast<int4*>(idx_s)[e] = reinterpret_cast<const int4*>(src)[e];
-    }
-  } else {
-    const int64_t total = (int64_t)n * k;
-    for (int e = tid; e < BM * k; e += THREADS) idx_s[e] = base + e < total ? src[e] : -1;
-  }
-}
-
-// output columns per CTA of the conv: the narrowest wgmma width that holds
-// cout, at most 128 (ops/banded_conv.py::conv_tile_n)
-int conv_tile_n(int cout) {
-  return cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 96 ? 96 : 128;
-}
-
-// ---------------------------------------------------------------------------
-// The conv: windows of sorted rows, A from registers (ldmatrix by row
-// address), each window copied once for all offsets of its dx
-// ---------------------------------------------------------------------------
-
-constexpr int LDW = 144;                     // window row stride: 64 channels + 16 B (conflict-free ldmatrix)
-constexpr int WIN_SLOTS = 2;                 // window buffers
-constexpr int WPRODUCERS = PRODUCERS - 32;   // window producers: all producer warps but the weights' one
-
-// bytes of dynamic shared memory of the window kernel besides its windows
-size_t win_fixed_smem(int bn, int k, bool idx) {
-  return 1024 + (size_t)RING * bn * 128
-         + (2 * RING + 2 * WIN_SLOTS) * sizeof(uint64_t) + 2 * (size_t)k * sizeof(int32_t)
-         + (idx ? (size_t)BM * k * sizeof(int32_t) : 0);
-}
-
-// rows a window buffer holds (a zero row follows them) in what is left
-int win_rows(int bn, int k, bool idx) {
-  const long left = (long)SMEM_MAX - (long)win_fixed_smem(bn, k, idx);
-  return static_cast<int>(left / (WIN_SLOTS * LDW)) - 1;
-}
-
-// y[row0 .. row0 + 256, tile's BN columns]. Offsets come in groups of kg
-// (those of one dx: their neighbours of the CTA's rows lie in one band of
-// sorted rows). For each group and 64-channel slice, the CTA copies the
-// window [lo, hi] of its present neighbours once, and each of the
-// group's offsets reads its A fragments from it by row address (an
-// absent neighbour reads a zero row). A group whose window exceeds wmax
-// rows falls back, in this CTA, to one window per offset holding its 256
-// gathered rows. Weights: a ring of one stage per (offset, slice), kept
-// full by one producer thread.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 1)
-banded_conv_kernel(const __nv_bfloat16* __restrict__ xb,
-                   const int32_t* __restrict__ nbr,
-                   const __nv_bfloat16* __restrict__ wimg,
-                   float* __restrict__ y, int n, int k, int cinp, int cout,
-                   int nsl, int kg, int wmax, int idx_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int wrows = wmax + 1;
-  const int ngroups = k / kg;
-  unsigned char* b_s = aligned_smem(smem_raw);            // [RING][BN rows][128 B]
-  unsigned char* win_s = b_s + RING * BN * 128;           // [2][wmax + 1 rows][144 B]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(win_s + WIN_SLOTS * wrows * LDW);
-  const Ring ring{bars, bars + RING};
-  uint64_t* wfull = bars + 2 * RING;
-  uint64_t* wempty = wfull + WIN_SLOTS;
-  int32_t* idx_s = reinterpret_cast<int32_t*>(wempty + WIN_SLOTS);  // [256][k]
-  int32_t* lo_s = idx_s + (idx_smem ? BM * k : 0);                  // [ngroups]
-  int32_t* hi_s = lo_s + k;                                         // [ngroups]
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int tile = blockIdx.y;
-  if (tid == 0) {
-    for (int s = 0; s < RING; ++s) {
-      mbar_init(&ring.full[s], 1);
-      mbar_init(&ring.empty[s], CONSUMERS);
-    }
-    for (int s = 0; s < WIN_SLOTS; ++s) {
-      mbar_init(&wfull[s], WPRODUCERS);
-      mbar_init(&wempty[s], CONSUMERS);
-    }
-    fence_barrier_init();
-  }
-  for (int c = tid; c < ngroups; c += THREADS) {
-    lo_s[c] = 0x7fffffff;
-    hi_s[c] = -1;
-  }
-  for (int e = tid; e < WIN_SLOTS * (LDW / 16); e += THREADS) {  // the zero rows
-    const int slot = e / (LDW / 16);
-    *reinterpret_cast<uint4*>(win_s + ((int64_t)slot * wrows + wmax) * LDW
-                              + (e - slot * (LDW / 16)) * 16) = make_uint4(0, 0, 0, 0);
-  }
-  const int32_t* idx = nbr + (int64_t)row0 * k;
-  if (idx_smem) {
-    stage_indices(idx_s, nbr, row0, n, k, tid);
-    idx = idx_s;
-  }
-  __syncthreads();
-  // each group's window: the least and greatest present neighbour
-  if (tid < BM) {
-    const bool live = row0 + tid < n;
-    for (int c = 0; c < ngroups; ++c) {
-      int lo = 0x7fffffff, hi = -1;
-      for (int jj = 0; live && jj < kg; ++jj) {
-        const int v = idx[tid * k + c * kg + jj];
-        if (v >= 0) {
-          lo = min(lo, v);
-          hi = max(hi, v);
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-      }
-      if ((tid & 31) == 0) {
-        atomicMin(&lo_s[c], lo);
-        atomicMax(&hi_s[c], hi);
-      }
-    }
-  }
-  __syncthreads();  // barriers, indices and windows ready
-  // a group's window fits (an empty one: hi - lo + 1 < 0)
-  auto banded = [&](int c) { return hi_s[c] - lo_s[c] + 1 <= wmax; };
-
-  if (tid >= CONSUMERS * 128) {
-    regs_dec<PRODUCER_REGS>();
-    const int ptid = tid - CONSUMERS * 128;
-    if (ptid == 0) {
-      // the weights: one stage per (offset, slice) in the consumers' order
-      const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(
-          wimg + (int64_t)tile * k * nsl * BN * 64);
-      int it = 0;
-      for (int c = 0; c < ngroups; ++c) {
-        for (int sl = 0; sl < nsl; ++sl) {
-          for (int jj = 0; jj < kg; ++jj, ++it) {
-            const int s = Ring::slot(it);
-            const int st = (c * kg + jj) * nsl + sl;
-            mbar_wait(&ring.empty[s], Ring::parity(it) ^ 1);
-            mbar_expect_tx(&ring.full[s], BN * 128);
-            bulk_copy(b_s + s * BN * 128, wsrc + (int64_t)st * BN * 128, BN * 128,
-                      &ring.full[s]);
-          }
-        }
-      }
-    } else if (ptid >= 32) {
-      // the windows, 16 bytes per cp.async, in the consumers' order
-      const int wp = ptid - 32;
-      int wi = 0;
-      auto fill = [&](auto copy) {
-        const int slot = wi % WIN_SLOTS;
-        mbar_wait(&wempty[slot], ((wi / WIN_SLOTS) & 1) ^ 1);
-        copy(win_s + (int64_t)slot * wrows * LDW);
-        cp_async_arrive(&wfull[slot]);
-        ++wi;
-      };
-      for (int c = 0; c < ngroups; ++c) {
-        const bool band = banded(c);
-        const int lo = lo_s[c];
-        const int len = band ? max(hi_s[c] - lo + 1, 0) : 0;
-        for (int sl = 0; sl < nsl; ++sl) {
-          const int c0 = sl * 64;
-          const int pieces = min(64, cinp - c0) / 8;
-          if (band) {
-            fill([&](unsigned char* win) {
-              for (int e = wp; e < len * pieces; e += WPRODUCERS) {
-                const int r = e / pieces;
-                const int q = e - r * pieces;
-                cp_async16(win + r * LDW + q * 16,
-                           xb + (int64_t)(lo + r) * cinp + c0 + q * 8, 16);
-              }
-            });
-          } else {
-            for (int jj = 0; jj < kg; ++jj) {
-              const int j = c * kg + jj;
-              fill([&](unsigned char* win) {
-                for (int e = wp; e < BM * pieces; e += WPRODUCERS) {
-                  const int r = e / pieces;
-                  const int q = e - r * pieces;
-                  const int v = row0 + r < n ? idx[r * k + j] : -1;
-                  cp_async16(win + r * LDW + q * 16,
-                             xb + (int64_t)max(v, 0) * cinp + c0 + q * 8, v >= 0 ? 16 : 0);
-                }
-              });
-            }
-          }
-        }
-      }
-    }
-  } else {
-    // consumers: warpgroup wg owns rows row0 + 128 wg .. + 128 (two m64
-    // tiles); this lane addresses rows rr and rr + 64 of the CTA for ldmatrix
-    regs_inc<CONSUMER_REGS>();
-    const int wg = tid >> 7;
-    const int wtid = tid & 127;
-    const int lane = wtid & 31;
-    const int rr = wg * 128 + (wtid >> 5) * 16 + (lane & 15);
-    float acc[2][BN / 2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
-    }
-    int it = 0;
-    // offset j's products for slice sl from window `win` (rows from lo, or
-    // the CTA's gathered rows when !band)
-    auto compute = [&](int j, int sl, const unsigned char* win, int lo, bool band) {
-      const int s = Ring::slot(it);
-      const int ksteps = min(64, cinp - sl * 64) / 16;
-      const unsigned char* arow[2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = rr + mt * 64;
-        int wr = r;
-        if (band) {
-          const int v = row0 + r < n ? idx[r * k + j] : -1;
-          wr = v >= 0 ? v - lo : wmax;
-        }
-        arow[mt] = win + wr * LDW + (lane >> 4) * 16;
-      }
-      uint32_t af[4][2][4];
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        if (ks < ksteps) {
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(af[ks][mt], arow[mt] + ks * 32);
-        }
-      }
-      mbar_wait(&ring.full[s], Ring::parity(it));
-      const unsigned char* bs = b_s + s * BN * 128;
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        if (ks < ksteps) {
-          const uint64_t db = smem_desc(bs + ks * 32, 16, 1024);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) wgmma_rs_bf16<BN, 0>(acc[mt], af[ks][mt], db);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      ring_release(ring, s, wtid);
-      ++it;
-    };
-    int wi = 0;
-    auto window = [&](auto body) {
-      const int slot = wi % WIN_SLOTS;
-      mbar_wait(&wfull[slot], (wi / WIN_SLOTS) & 1);
-      body(win_s + (int64_t)slot * wrows * LDW);
-      if (wtid == 0) mbar_arrive(&wempty[slot]);
-      ++wi;
-    };
-    for (int c = 0; c < ngroups; ++c) {
-      const bool band = banded(c);
-      const int lo = lo_s[c];
-      for (int sl = 0; sl < nsl; ++sl) {
-        if (band) {
-          window([&](const unsigned char* win) {
-            for (int jj = 0; jj < kg; ++jj) compute(c * kg + jj, sl, win, lo, true);
-          });
-        } else {
-          for (int jj = 0; jj < kg; ++jj) {
-            window([&](const unsigned char* win) { compute(c * kg + jj, sl, win, 0, false); });
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      store_tile<BN>(acc[mt], y, cout, row0 + wg * 128 + mt * 64, n, tile * BN,
-                     cout, wtid);
-    }
-  }
-  __syncthreads();  // no producer leaves before the copies it issued landed
-}
-
-template <int BN>
-int launch_conv(const __nv_bfloat16* xb, const int32_t* nbr,
-                const __nv_bfloat16* wimg, float* y, int n, int k, int cinp,
-                int cout, int nsl, int kg, cudaStream_t stream) {
-  bool idx = true;
-  int wmax = win_rows(BN, k, idx);
-  if (wmax < BM) {
-    idx = false;
-    wmax = win_rows(BN, k, idx);
-  }
-  if (wmax < BM) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = win_fixed_smem(BN, k, idx) + (size_t)WIN_SLOTS * (wmax + 1) * LDW;
-  return launch(banded_conv_kernel<BN>, dim3((n + BM - 1) / BM, (cout + BN - 1) / BN),
-                smem, stream, xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, wmax,
-                static_cast<int>(idx));
-}
-
+// The conv: window_conv_kernel (common.cuh) with the windows found by each
+// CTA, in two slots, the indices staged where the windows still fit
 int dispatch_conv(const __nv_bfloat16* xb, const int32_t* nbr,
                   const __nv_bfloat16* wimg, float* y, int n, int k, int cinp,
                   int cout, int nsl, int kg, cudaStream_t stream) {
-  switch (conv_tile_n(cout)) {
-    case 32: return launch_conv<32>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
-    case 64: return launch_conv<64>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
-    case 96: return launch_conv<96>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
-    default: return launch_conv<128>(xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, stream);
-  }
+  return with_tile_n(cout, [&](auto tile_n) {
+    constexpr int BN = decltype(tile_n)::value;
+    bool idx = true;
+    int wmax = win_rows(BN, k, idx, 2 * k, WIN_SLOTS);
+    if (wmax < BM) {
+      idx = false;
+      wmax = win_rows(BN, k, idx, 2 * k, WIN_SLOTS);
+    }
+    if (wmax < BM) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = win_fixed_smem(BN, k, idx, 2 * k) + (size_t)WIN_SLOTS * (wmax + 1) * LDW;
+    return launch(window_conv_kernel<BN, false>, dim3((n + BM - 1) / BM, (cout + BN - 1) / BN),
+                  smem, stream, xb, nbr, wimg, y, n, k, cinp, cout, nsl, kg, wmax,
+                  WIN_SLOTS, static_cast<int>(idx), PlanWindows{});
+  });
 }
 
 // bytes of dynamic shared memory of the dW kernel: alignment slack, the
@@ -648,15 +306,9 @@ extern "C" int agile3d_banded_conv(const void* x, const void* nbr,
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
   auto* wip = static_cast<__nv_bfloat16*>(wimg);
   const int nsl = (cinp + 63) / 64;
-  const int bn = conv_tile_n(cout);
-  const int ntiles = (cout + bn - 1) / bn;
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(
-      static_cast<const float*>(x), xbp, n, cin, cinp);
-  cast_weight_image_kernel<<<grid_for((int64_t)ntiles * k * nsl * bn * 8), 256, 0,
-                             stream>>>(static_cast<const float*>(w), wip, k, cin,
-                                       cout, bn, nsl, ntiles, flip);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = cast_conv_operands(static_cast<const float*>(x), static_cast<const float*>(w),
+                                    xbp, wip, n, k, cin, cinp, cout, flip, stream);
+  if (rc != 0) return rc;
   int s = 1;
   while ((s + 1) * (s + 1) * (s + 1) <= k) ++s;
   const int kg = s * s * s == k ? s * s : 1;  // offsets of one dx

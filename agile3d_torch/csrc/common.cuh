@@ -3,14 +3,17 @@
 // passes that cast f32 rows and weights to padded bf16 operands, and the
 // pieces of the warp-specialised kernels: mbarriers, bulk copies, wgmma
 // with its swizzled shared-memory images, the stage ring of two producer
-// warpgroups and two consumer warpgroups, and the casts that write those
-// images.
+// warpgroups and two consumer warpgroups, the casts that write those
+// images, and the window conv of sorted rows that the k3 conv and the
+// window probe share (one kernel template on where the windows come from).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // internal linkage: each source builds into a library of its own
 namespace {
@@ -453,6 +456,43 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], const uint32_t 
   if constexpr (N == 128) wgmma_rs_m64n128k16<TB>(d, a, db);
 }
 
+constexpr int SMEM_MAX = 232448;  // shared memory one block may use (227 KB)
+
+// the 1024-byte aligned start of dynamic shared memory (the swizzled tiles
+// need it)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// stores one accumulator tile of a consumer warpgroup: rows r0 + the
+// layout's row, columns col0 + the layout's column, where the row is below
+// `rows` and the column below `cols`; `out` rows have stride `ld`
+template <int N>
+__device__ __forceinline__ void store_tile(const float (&d)[N / 2], float* out,
+                                           int64_t ld, int r0, int rows,
+                                           int col0, int cols, int wtid) {
+  const int warp = wtid >> 5;
+  const int lane = wtid & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + warp * 16 + (lane >> 2) + h * 8;
+    if (r >= rows) continue;
+    float* row = out + r * ld;
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const int col = col0 + i * 8 + (lane & 3) * 2;
+      const float v0 = d[4 * i + 2 * h];
+      const float v1 = d[4 * i + 2 * h + 1];
+      if ((ld & 1) == 0 && col + 1 < cols) {
+        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+      } else {
+        if (col < cols) row[col] = v0;
+        if (col + 1 < cols) row[col + 1] = v1;
+      }
+    }
+  }
+}
+
 // The ring of stages of the warp-specialised kernels. Stage slot s has a
 // `full` barrier (every producer thread's gathers, which arrive on it when
 // they land, plus the shared operand's bytes) and an `empty` barrier (each
@@ -600,6 +640,480 @@ __global__ void cast_row_image_kernel(const float* __restrict__ g,
     *reinterpret_cast<uint4*>(img + ((b * atoms + a) * 64 + m) * 64
                               + ((q ^ (m & 7)) * 8)) = out;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The window conv of sorted rows, shared by the k3 conv (banded_conv.cu),
+// which finds each CTA's windows from its neighbour indices, and the window
+// probe (banded_window.cu), which reads them from a host plan:
+//
+//   y[i, :] = sum_j bf16(x[nbr[i, j], :]) @ bf16(w[j]) over the neighbours
+//             inside their window, f32 accumulation
+//
+// A CTA owns 256 output rows (128 per consumer warpgroup, two m64 tiles) and
+// BN <= 128 output columns (blockIdx.y tiles wider outputs). Offsets come
+// in groups whose neighbours of sorted rows lie in one band of rows (the 9
+// offsets of one dx). For each group and 64-channel slice, the window
+// producers copy the group's window of rows into a window slot once (16-byte
+// cp.async, a zero row after it), and each of the group's offsets reads its
+// A fragments from it by row address (ldmatrix; a neighbour that is absent,
+// or outside its window, reads the zero row) and runs wgmma with A from
+// registers against the offset's weight slice (one ring stage per offset and
+// slice, kept full by one producer thread by bulk copy).
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = CONSUMERS * 128 + PRODUCERS;  // consumer warpgroups, then the producers
+constexpr int PRODUCER_REGS = 56;   // setmaxnreg: 256 x 56 + 256 x 200 = 65,536
+constexpr int CONSUMER_REGS = 200;
+constexpr int BM = 256;                      // window conv: output rows per CTA
+constexpr int LDW = 144;                     // window row stride: 64 channels + 16 B (conflict-free ldmatrix)
+constexpr int WIN_SLOTS = 2;                 // window slots, at most
+constexpr int WPRODUCERS = PRODUCERS - 32;   // window producers: all producer warps but the weights' one
+constexpr int PLAN_DESC = 10;                // ints per group of a CTA's planned windows
+
+// ints of shared memory that describe a CTA's planned windows: PLAN_DESC
+// per cluster, then the plan's order [k] and bounds [ncl + 1]
+inline int plan_desc_ints(int k, int ncl) { return PLAN_DESC * ncl + k + ncl + 1; }
+
+// Launches `kern` over `grid` with `smem` bytes of dynamic shared memory.
+template <class Kern, class... Args>
+int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, THREADS, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The neighbour indices of the CTA's rows row0 .. row0 + 256 into shared
+// memory (-1 past n): 16-byte copies where the rows are whole and both ends
+// aligned, else one index per thread and step.
+__device__ __forceinline__ void stage_indices(int32_t* idx_s, const int32_t* nbr,
+                                              int row0, int n, int k, int tid) {
+  const int64_t base = (int64_t)row0 * k;
+  const int32_t* src = nbr + base;
+  if (row0 + BM <= n
+      && ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(idx_s)) & 15) == 0) {
+#pragma unroll 4
+    for (int e = tid; e < BM * k / 4; e += THREADS) {
+      reinterpret_cast<int4*>(idx_s)[e] = reinterpret_cast<const int4*>(src)[e];
+    }
+  } else {
+    const int64_t total = (int64_t)n * k;
+    for (int e = tid; e < BM * k; e += THREADS) idx_s[e] = base + e < total ? src[e] : -1;
+  }
+}
+
+// output columns per CTA of the conv: the narrowest wgmma width that holds
+// cout, at most 128 (ops/banded_conv.py::conv_tile_n)
+inline int conv_tile_n(int cout) {
+  return cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 96 ? 96 : 128;
+}
+
+// f(std::integral_constant<int, conv_tile_n(cout)>{})
+template <class F>
+int with_tile_n(int cout, F f) {
+  switch (conv_tile_n(cout)) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    default: return f(std::integral_constant<int, 128>{});
+  }
+}
+
+// The window probe's host plan: per 128-row block and cluster (group) of
+// offsets, the window rows [start, start + length)
+struct PlanWindows {
+  const int32_t* start;   // [nb][ncl]
+  const int32_t* length;  // [nb][ncl]
+  const int32_t* order;   // [k] offsets grouped by cluster
+  const int32_t* bounds;  // [ncl + 1] cluster c is order[bounds[c] : bounds[c + 1]]
+  int nb;
+  int ncl;
+};
+
+// bytes of dynamic shared memory of the window conv besides its windows:
+// alignment slack, the weight ring, the barriers, the staged indices (with
+// `idx`) and `desc` ints describing the CTA's windows
+size_t win_fixed_smem(int bn, int k, bool idx, int desc) {
+  return 1024 + (size_t)RING * bn * 128
+         + (2 * RING + 2 * WIN_SLOTS) * sizeof(uint64_t) + (size_t)desc * sizeof(int32_t)
+         + (idx ? (size_t)BM * k * sizeof(int32_t) : 0);
+}
+
+// rows each of `slots` window slots holds (a zero row follows them) in what
+// is left
+int win_rows(int bn, int k, bool idx, int desc, int slots) {
+  const long left = (long)SMEM_MAX - (long)win_fixed_smem(bn, k, idx, desc);
+  return static_cast<int>(left / (slots * LDW)) - 1;
+}
+
+// y[row0 .. row0 + 256, tile's BN columns], windows of `nslots` slots of
+// wmax + 1 rows.
+//  * PLAN = false (the k3 conv): groups of kg consecutive offsets; the CTA
+//    finds each group's window [lo, hi] of its present neighbours from its
+//    indices. A group whose window exceeds wmax rows falls back, in this
+//    CTA, to one window per offset holding its 256 gathered rows.
+//  * PLAN = true (the window probe): the plan's clusters; consumer
+//    warpgroup wg masks by the window of plan block 2 blockIdx.x + wg. A
+//    cluster's slot holds the union of the two blocks' windows, or, where
+//    that is longer, the two windows one after the other (at most 2 x the
+//    longest window rows). A cluster with no window takes no stage; a
+//    warpgroup whose block has none reads the zero row (a branch that
+//    skipped its products was slower at the eval shapes).
+template <int BN, bool PLAN>
+__global__ void __launch_bounds__(THREADS, 1)
+window_conv_kernel(const __nv_bfloat16* __restrict__ xb,
+                   const int32_t* __restrict__ nbr,
+                   const __nv_bfloat16* __restrict__ wimg,
+                   float* __restrict__ y, int n, int k, int cinp, int cout,
+                   int nsl, int kg, int wmax, int nslots, int idx_smem,
+                   PlanWindows plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wrows = wmax + 1;
+  const int ngroups = PLAN ? plan.ncl : k / kg;
+  unsigned char* b_s = aligned_smem(smem_raw);            // [RING][BN rows][128 B]
+  unsigned char* win_s = b_s + RING * BN * 128;           // [nslots][wmax + 1 rows][144 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(win_s + nslots * wrows * LDW);
+  const Ring ring{bars, bars + RING};
+  uint64_t* wfull = bars + 2 * RING;
+  uint64_t* wempty = wfull + WIN_SLOTS;
+  int32_t* idx_s = reinterpret_cast<int32_t*>(wempty + WIN_SLOTS);  // [256][k]
+  // the windows: lo [k], hi [k] found here; or [ngroups][PLAN_DESC]
+  // planned, then the plan's order [k] and bounds [ngroups + 1]
+  int32_t* lo_s = idx_s + (idx_smem ? BM * k : 0);
+  int32_t* hi_s = lo_s + k;
+  int32_t* desc_s = lo_s;
+  int32_t* ord_s = desc_s + ngroups * PLAN_DESC;
+  int32_t* bnd_s = ord_s + k;
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * BM;
+  const int tile = blockIdx.y;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < nslots; ++s) {
+      mbar_init(&wfull[s], WPRODUCERS);
+      mbar_init(&wempty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  if constexpr (PLAN) {
+    for (int e = tid; e < k + ngroups + 1; e += THREADS) {
+      ord_s[e] = e < k ? plan.order[e] : plan.bounds[e - k];
+    }
+    // each cluster's window rows: run 1 [src1, src1 + len1), then run 2
+    // from src2, `total` rows in all; each block's window (s, l) and the
+    // slot row of its first row (base)
+    for (int c = tid; c < ngroups; c += THREADS) {
+      const int b0 = 2 * blockIdx.x;
+      const int sa = plan.start[b0 * ngroups + c];
+      const int la = plan.length[b0 * ngroups + c];
+      const bool second = b0 + 1 < plan.nb;
+      const int sb = second ? plan.start[(b0 + 1) * ngroups + c] : 0;
+      const int lb = second ? plan.length[(b0 + 1) * ngroups + c] : 0;
+      int src1 = sa, len1 = la, src2 = sb, total = la + lb, base_a = 0, base_b = la;
+      if (la == 0) {
+        src1 = sb;
+        len1 = lb;
+        base_b = 0;
+      } else if (lb > 0) {
+        const int lo = min(sa, sb);
+        const int hi = max(sa + la, sb + lb);
+        if (hi - lo <= la + lb) {  // overlapping or adjacent: one run
+          src1 = lo;
+          len1 = total = hi - lo;
+          base_a = sa - lo;
+          base_b = sb - lo;
+        }
+      }
+      int32_t* d = desc_s + c * PLAN_DESC;
+      d[0] = src1;
+      d[1] = len1;
+      d[2] = src2;
+      d[3] = total;
+      d[4] = sa;
+      d[5] = la;
+      d[6] = base_a;
+      d[7] = sb;
+      d[8] = lb;
+      d[9] = base_b;
+    }
+  } else {
+    for (int c = tid; c < ngroups; c += THREADS) {
+      lo_s[c] = 0x7fffffff;
+      hi_s[c] = -1;
+    }
+  }
+  for (int e = tid; e < nslots * (LDW / 16); e += THREADS) {  // the zero rows
+    const int slot = e / (LDW / 16);
+    *reinterpret_cast<uint4*>(win_s + ((int64_t)slot * wrows + wmax) * LDW
+                              + (e - slot * (LDW / 16)) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  const int32_t* idx = nbr + (int64_t)row0 * k;
+  if (idx_smem) {
+    stage_indices(idx_s, nbr, row0, n, k, tid);
+    idx = idx_s;
+  }
+  __syncthreads();
+  if constexpr (!PLAN) {
+    // each group's window: the least and greatest present neighbour
+    if (tid < BM) {
+      const bool live = row0 + tid < n;
+      for (int c = 0; c < ngroups; ++c) {
+        int lo = 0x7fffffff, hi = -1;
+        for (int jj = 0; live && jj < kg; ++jj) {
+          const int v = idx[tid * k + c * kg + jj];
+          if (v >= 0) {
+            lo = min(lo, v);
+            hi = max(hi, v);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+          hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        }
+        if ((tid & 31) == 0) {
+          atomicMin(&lo_s[c], lo);
+          atomicMax(&hi_s[c], hi);
+        }
+      }
+    }
+    __syncthreads();  // windows ready
+  }
+
+  // group c: its offsets goff(gbase(c), jj) for jj < glen(c), whether it
+  // takes stages, whether its window fits
+  auto gbase = [&](int c) {
+    if constexpr (PLAN) return bnd_s[c];
+    else return c * kg;
+  };
+  auto glen = [&](int c) {
+    if constexpr (PLAN) return bnd_s[c + 1] - bnd_s[c];
+    else return kg;
+  };
+  auto goff = [&](int base, int jj) {
+    if constexpr (PLAN) return ord_s[base + jj];
+    else return base + jj;
+  };
+  auto live = [&](int c) {
+    if constexpr (PLAN) return desc_s[c * PLAN_DESC + 3] > 0;
+    else return true;
+  };
+  // a group's window fits (an empty one: hi - lo + 1 < 0)
+  auto banded = [&](int c) {
+    if constexpr (PLAN) return true;
+    else return hi_s[c] - lo_s[c] + 1 <= wmax;
+  };
+
+  if (tid >= CONSUMERS * 128) {
+    regs_dec<PRODUCER_REGS>();
+    const int ptid = tid - CONSUMERS * 128;
+    if (ptid == 0) {
+      // the weights: one stage per (offset, slice) in the consumers' order
+      const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(
+          wimg + (int64_t)tile * k * nsl * BN * 64);
+      int it = 0;
+      for (int c = 0; c < ngroups; ++c) {
+        if (!live(c)) continue;
+        const int gb = gbase(c);
+        const int gl = glen(c);
+        for (int sl = 0; sl < nsl; ++sl) {
+          for (int jj = 0; jj < gl; ++jj, ++it) {
+            const int s = Ring::slot(it);
+            const int st = goff(gb, jj) * nsl + sl;
+            mbar_wait(&ring.empty[s], Ring::parity(it) ^ 1);
+            mbar_expect_tx(&ring.full[s], BN * 128);
+            bulk_copy(b_s + s * BN * 128, wsrc + (int64_t)st * BN * 128, BN * 128,
+                      &ring.full[s]);
+          }
+        }
+      }
+    } else if (ptid >= 32) {
+      // the windows, 16 bytes per cp.async, in the consumers' order
+      const int wp = ptid - 32;
+      int wi = 0;
+      auto fill = [&](auto copy) {
+        const int slot = wi % nslots;
+        mbar_wait(&wempty[slot], ((wi / nslots) & 1) ^ 1);
+        copy(win_s + (int64_t)slot * wrows * LDW);
+        cp_async_arrive(&wfull[slot]);
+        ++wi;
+      };
+      for (int c = 0; c < ngroups; ++c) {
+        if (!live(c)) continue;
+        const bool band = banded(c);
+        // the window's rows: run 1 [src1, src1 + len1), then run 2 from src2
+        int src1, len1, src2, total;
+        if constexpr (PLAN) {
+          const int32_t* d = desc_s + c * PLAN_DESC;
+          src1 = d[0];
+          len1 = d[1];
+          src2 = d[2];
+          total = d[3];
+        } else {
+          src1 = lo_s[c];
+          len1 = total = band ? max(hi_s[c] - src1 + 1, 0) : 0;
+          src2 = 0;
+        }
+        for (int sl = 0; sl < nsl; ++sl) {
+          const int c0 = sl * 64;
+          const int pieces = min(64, cinp - c0) / 8;
+          if (band) {
+            fill([&](unsigned char* win) {
+              for (int e = wp; e < total * pieces; e += WPRODUCERS) {
+                const int r = e / pieces;
+                const int q = e - r * pieces;
+                const int src = r < len1 ? src1 + r : src2 + (r - len1);
+                cp_async16(win + r * LDW + q * 16,
+                           xb + (int64_t)src * cinp + c0 + q * 8, 16);
+              }
+            });
+          } else {
+            for (int jj = 0; jj < kg; ++jj) {
+              const int j = c * kg + jj;
+              fill([&](unsigned char* win) {
+                for (int e = wp; e < BM * pieces; e += WPRODUCERS) {
+                  const int r = e / pieces;
+                  const int q = e - r * pieces;
+                  const int v = row0 + r < n ? idx[r * k + j] : -1;
+                  cp_async16(win + r * LDW + q * 16,
+                             xb + (int64_t)max(v, 0) * cinp + c0 + q * 8, v >= 0 ? 16 : 0);
+                }
+              });
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows row0 + 128 wg .. + 128 (two m64
+    // tiles); this lane addresses rows rr and rr + 64 of the CTA for ldmatrix
+    regs_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int wtid = tid & 127;
+    const int lane = wtid & 31;
+    const int rr = wg * 128 + (wtid >> 5) * 16 + (lane & 15);
+    float acc[2][BN / 2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+    }
+    int it = 0;
+    // offset j's products for slice sl from window `win`: a neighbour v in
+    // [ws, ws + wl) reads slot row base + v - ws (band), or the CTA's
+    // gathered rows (!band)
+    auto compute = [&](int j, int sl, const unsigned char* win, int ws, int wl,
+                       int base, bool band) {
+      const int s = Ring::slot(it);
+      const int ksteps = min(64, cinp - sl * 64) / 16;
+      const unsigned char* arow[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = rr + mt * 64;
+        int wr = r;
+        if (band) {
+          const int v = row0 + r < n ? idx[r * k + j] : -1;
+          wr = v >= 0 && static_cast<unsigned>(v - ws) < static_cast<unsigned>(wl)
+                   ? base + v - ws : wmax;
+        }
+        arow[mt] = win + wr * LDW + (lane >> 4) * 16;
+      }
+      uint32_t af[4][2][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks < ksteps) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(af[ks][mt], arow[mt] + ks * 32);
+        }
+      }
+      mbar_wait(&ring.full[s], Ring::parity(it));
+      const unsigned char* bs = b_s + s * BN * 128;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks < ksteps) {
+          const uint64_t db = smem_desc(bs + ks * 32, 16, 1024);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) wgmma_rs_bf16<BN, 0>(acc[mt], af[ks][mt], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      ring_release(ring, s, wtid);
+      ++it;
+    };
+    int wi = 0;
+    auto window = [&](auto body) {
+      const int slot = wi % nslots;
+      mbar_wait(&wfull[slot], (wi / nslots) & 1);
+      body(win_s + (int64_t)slot * wrows * LDW);
+      if (wtid == 0) mbar_arrive(&wempty[slot]);
+      ++wi;
+    };
+    for (int c = 0; c < ngroups; ++c) {
+      if (!live(c)) continue;
+      const bool band = banded(c);
+      // this warpgroup's window: the CTA's found one, or its block's planned one
+      int ws, wl, base;
+      if constexpr (PLAN) {
+        const int32_t* d = desc_s + c * PLAN_DESC + 4 + 3 * wg;
+        ws = d[0];
+        wl = d[1];
+        base = d[2];
+      } else {
+        ws = lo_s[c];
+        wl = max(hi_s[c] - ws + 1, 0);
+        base = 0;
+      }
+      const int gb = gbase(c);
+      const int gl = glen(c);
+      for (int sl = 0; sl < nsl; ++sl) {
+        if (band) {
+          window([&](const unsigned char* win) {
+            for (int jj = 0; jj < gl; ++jj) compute(goff(gb, jj), sl, win, ws, wl, base, true);
+          });
+        } else {
+          for (int jj = 0; jj < kg; ++jj) {
+            window([&](const unsigned char* win) {
+              compute(c * kg + jj, sl, win, 0, 0, 0, false);
+            });
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      store_tile<BN>(acc[mt], y, cout, row0 + wg * 128 + mt * 64, n, tile * BN,
+                     cout, wtid);
+    }
+  }
+  __syncthreads();  // no producer leaves before the copies it issued landed
+}
+
+// The operands the window conv reads: x [n, cin] f32 as bf16 rows padded to
+// cinp channels, and w [k, cin, cout] f32 (with `flip`: a forward's [k,
+// cout, cin]) as the weight image of its tiles of conv_tile_n(cout) columns.
+int cast_conv_operands(const float* x, const float* w, __nv_bfloat16* xb,
+                       __nv_bfloat16* wimg, int n, int k, int cin, int cinp,
+                       int cout, int flip, cudaStream_t stream) {
+  const int nsl = (cinp + 63) / 64;
+  const int bn = conv_tile_n(cout);
+  const int ntiles = (cout + bn - 1) / bn;
+  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(x, xb, n, cin, cinp);
+  cast_weight_image_kernel<<<grid_for((int64_t)ntiles * k * nsl * bn * 8), 256, 0,
+                             stream>>>(w, wimg, k, cin, cout, bn, nsl, ntiles, flip);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

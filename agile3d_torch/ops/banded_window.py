@@ -13,9 +13,12 @@ Rows are sorted with z fastest, so the k3 offsets of one dx (a cluster)
 read one narrow band of rows for a block of consecutive output rows.
 ``window_plan`` gives each (128-row block, cluster) the start and length of
 that band. The TPU plan's 32-row alignment and single 4,096-row union
-window were Mosaic's constraints and are not carried over. The kernel
-copies each window into shared memory and gathers from there by row
-address; ``tools/probe_banded_kernel.py`` in the port runs it beside
+window were Mosaic's constraints and are not carried over. The kernel is
+``banded_conv``'s (``csrc/common.cuh``: wgmma on mbarrier rings, the
+weights cast once into their swizzled image) with the windows read from
+the plan: each 256-row CTA copies its two blocks' windows into shared
+memory and gathers from there by row address;
+``tools/probe_banded_kernel.py`` in the port runs it beside
 ``banded_conv``.
 
 CPU tensors take ``banded_window_conv_reference``; CUDA tensors launch the
@@ -31,12 +34,21 @@ import numpy as np
 import torch
 
 from agile3d_torch.ops import cuda_build
-from agile3d_torch.ops.banded_conv import _check, banded_conv_reference
+from agile3d_torch.ops.banded_conv import (
+    _check,
+    banded_conv_reference,
+    conv_cinp,
+    conv_tile_n,
+    weight_image_numel,
+)
 from agile3d_torch.sparse.kernel_maps import kernel_offsets
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-BLOCK_M = 128  # output rows per block (csrc BM)
+BLOCK_M = 128  # output rows per plan block: half a CTA's (csrc BM / 2)
 SMEM_MAX = 232448  # shared memory one block may use on the H100 (227 KB)
+# csrc/common.cuh: window row stride (64 channels + 16 bytes), weight ring
+# stages, window slots, ints per cluster of a CTA's planned windows
+LDW, RING, WIN_SLOTS, PLAN_DESC = 144, 4, 2, 10
 
 
 class WindowPlan(NamedTuple):
@@ -155,22 +167,37 @@ def window_work(k3: torch.Tensor, plan: WindowPlan, cin: int,
     return flops, nbytes
 
 
-def _cinp(cin: int) -> int:
-    return -(-cin // 16) * 16  # the kernel's bf16 rows, padded to 16 channels
+def _win_rows(k: int, cout: int, staged: bool, slots: int) -> int:
+    """Rows each of ``slots`` window slots holds beside the weight ring,
+    the barriers, the windows' descriptors with the plan's order and
+    bounds, and (``staged``) the CTA's 256 rows of indices (csrc
+    ``win_rows``; a zero row follows them)."""
+    ncl = int(offset_clusters(k).max()) + 1
+    fixed = (1024 + RING * conv_tile_n(cout) * 128 + (2 * RING + 2 * WIN_SLOTS) * 8
+             + (PLAN_DESC * ncl + k + ncl + 1) * 4  # windows, order, bounds
+             + (2 * BLOCK_M * k * 4 if staged else 0))
+    return (SMEM_MAX - fixed) // (slots * LDW) - 1
 
 
-def _block_cols(cout: int) -> int:
-    """Output columns per block (csrc: BN = 2 warps x NT n8 tiles)."""
-    nt = 2 if cout <= 32 else 4 if cout <= 64 else 6 if cout <= 96 else 8
-    return 2 * nt * 8
+def window_layout(k: int, cout: int, max_length: int) -> tuple[int, bool, int]:
+    """(window slots, indices staged, rows a slot holds) of the launch for
+    a plan whose longest window is ``max_length``: the most slots, then
+    staged indices, such that a slot holds the windows of a CTA's two
+    blocks (csrc ``agile3d_banded_window``). Raises ValueError when even
+    one slot cannot."""
+    for slots in (WIN_SLOTS, 1):
+        for staged in (True, False):
+            rows = _win_rows(k, cout, staged, slots)
+            if 2 * max_length <= rows:
+                return slots, staged, rows
+    raise ValueError(f"two windows of {max_length} rows do not fit one slot")
 
 
-def max_window_rows(k: int, cin: int, cout: int) -> int:
-    """The longest window that fits one block's shared memory beside the
-    block's neighbour indices and two weight tiles (csrc smem_bytes)."""
-    row = 2 * (_cinp(cin) + 8)
-    fixed = BLOCK_M * k * 4 + 2 * _block_cols(cout) * row
-    return (SMEM_MAX - fixed) // row - 1  # one zero row follows the window
+def max_window_rows(k: int, cout: int) -> int:
+    """The longest window the kernel takes at k offsets and cout output
+    channels: one slot holds a CTA's two windows of it. A window row is one
+    64-channel slice of x, so the input width does not enter."""
+    return _win_rows(k, cout, False, 1) // 2
 
 
 def _lib():
@@ -201,22 +228,22 @@ def banded_window_conv(x: torch.Tensor, k3: torch.Tensor, plan: WindowPlan,
         raise ValueError(f"the plan (block_m {plan.block_m}, "
                          f"{plan.start.shape[0]} blocks, {plan.order.shape[0]} "
                          f"offsets) is not one of this map's")
-    limit = max_window_rows(k, cin, cout)
+    limit = max_window_rows(k, cout)
     if plan.max_length > limit:
         raise ValueError(f"a window of {plan.max_length} rows exceeds the "
-                         f"{limit} that fit in shared memory at cin {cin}, "
-                         f"cout {cout}")
-    cinp = _cinp(cin)
+                         f"{limit} that fit in shared memory at cout {cout}")
+    cinp = conv_cinp(cin)
     y = torch.empty((n, cout), dtype=torch.float32, device=x.device)
     xb = torch.empty((n, cinp), dtype=torch.bfloat16, device=x.device)
-    wt = torch.empty((k, cout, cinp), dtype=torch.bfloat16, device=x.device)
+    wimg = torch.empty(weight_image_numel(k, cin, cout), dtype=torch.bfloat16,
+                       device=x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), k3.data_ptr(), w.data_ptr(),
                 plan.start.data_ptr(), plan.length.data_ptr(),
                 plan.order.data_ptr(), plan.bounds.data_ptr(), y.data_ptr(),
-                xb.data_ptr(), wt.data_ptr(), n, k, plan.bounds.shape[0] - 1,
+                xb.data_ptr(), wimg.data_ptr(), n, k, plan.bounds.shape[0] - 1,
                 cin, cinp, cout, plan.max_length, stream)
     if rc != 0:
         raise RuntimeError(f"banded_window kernel launch failed: CUDA error {rc}")

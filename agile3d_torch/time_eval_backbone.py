@@ -1,6 +1,8 @@
 """Eval backbone time of the port in a checkout ROOT, on the smoke scene of
 ``chip_smoke.py`` (400,000 points, 196,608 rows): CUDA events, median of
-10 calls after 2 warm-ups, printed as one ``EVAL_AB`` line.
+10 calls after 2 warm-ups, printed as one ``EVAL_AB`` line; then the k5
+stem kernel's device time at that scene's level 0 (3 -> 32, seeded x and
+w; ``agile3d_torch.tools.time_ms``) as one ``STEM_AB`` line.
 
     python agile3d_torch/time_eval_backbone.py ROOT
 
@@ -47,6 +49,17 @@ def main(root: str) -> None:
         ts.append(s.elapsed_time(e))
     print("EVAL_AB", os.path.basename(root), statistics.median(ts),
           [round(t, 2) for t in ts], flush=True)
+
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.tools import time_ms
+
+    dev = torch.device("cuda")
+    k5 = torch.from_numpy(batch.pyramid.levels[0].k5).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((k5.shape[0], 3), generator=g, device=dev)
+    w = torch.randn((125, 3, 32), generator=g, device=dev) * 375 ** -0.5
+    print("STEM_AB", os.path.basename(root),
+          time_ms(lambda: banded_stem_conv(x, k5, w), dev), flush=True)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,7 @@ def run(k3: np.ndarray, cin: int, cout: int, device, generator,
     ``device`` (``generator`` lives there). Returns the numbers printed."""
     device = torch.device(device)
     n, k = k3.shape
-    plan = window_plan(k3, max_rows=max_window_rows(k, cin, cout))
+    plan = window_plan(k3, max_rows=max_window_rows(k, cout))
     stats = window_stats(k3, plan)
     per = ", ".join(f"{s['p50']:.0f}/{s['p99']:.0f}/{s['max']}"
                     for s in stats["windows"])

@@ -213,6 +213,7 @@ def phase_kernels(torch, cases):
     from agile3d_torch.ops.banded_stem import (
         banded_stem_conv,
         banded_stem_conv_reference,
+        stem_prep,
     )
 
     fns = {"banded_conv": (banded_conv, banded_conv_reference),
@@ -273,6 +274,9 @@ def phase_kernels(torch, cases):
                    ms=time_ms(torch, run),
                    plain_ms=time_ms(torch, lambda: plain(x, nbr, plain_other)),
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        if name == "banded_stem":
+            # the cast of x and w that each call runs first (in ms)
+            row["prep_ms"] = time_ms(torch, lambda: stem_prep(x, other))
         emit({"phase": "kernel_parity", **row})
         rows.append(row)
         del x, other, plain_other, y, ref, xz, idx, ob
@@ -289,6 +293,7 @@ def phase_probes(torch, eval_pyr, eval_dev):
         banded_window_conv,
         banded_window_conv_reference,
         max_window_rows,
+        window_layout,
         window_plan,
         window_stats,
         window_work,
@@ -311,9 +316,12 @@ def phase_probes(torch, eval_pyr, eval_dev):
     for lv, lv_d in zip(eval_pyr.levels[:2], eval_dev.levels[:2]):
         nbr = lv_d.k3
         n, k = nbr.shape
-        plan = window_plan(lv.k3, max_rows=max_window_rows(k, 128, 96))
+        plan = window_plan(lv.k3, max_rows=max_window_rows(k, 96))
         stats = window_stats(lv.k3, plan)
-        emit({"phase": "probe_plan", "rows": n, **stats})
+        slots, staged, slot_rows = window_layout(k, 96, plan.max_length)
+        emit({"phase": "probe_plan", "rows": n, **stats,
+              "layout": {"window_slots": slots, "indices_staged": staged,
+                         "slot_rows": slot_rows}})
         check(plan.covers, f"the window plan of the {n}-row map does not "
                            f"cover every present neighbour")
         plan_d = plan.to(DEVICE)
@@ -1044,6 +1052,8 @@ def main():
             entry["max_abs_err"] = max(entry["max_abs_err"], ev["max_abs_err"])
             entry["per_eval_forward"] = {k: ev[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "shapes")}
+        if name == "banded_stem":
+            entry["prep_ms"] = sum(r["prep_ms"] * r["count"] for r in mine)
         if name == "banded_window_conv":
             entry["banded_conv_ms"] = sum(r["banded_conv_ms"] * r["count"]
                                           for r in mine)

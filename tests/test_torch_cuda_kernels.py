@@ -23,10 +23,15 @@ from agile3d_torch.ops.banded_conv import (
 from agile3d_torch.ops.banded_stem import (
     banded_stem_conv,
     banded_stem_conv_reference,
+    stem_prep,
+    stem_weight_image_numel,
 )
 from agile3d_torch.ops.banded_window import (
     banded_window_conv,
     banded_window_conv_reference,
+    max_window_rows,
+    window_layout,
+    window_mask,
     window_plan,
 )
 from agile3d_torch.ops.row_gather import (
@@ -139,11 +144,88 @@ def test_banded_conv_transposed_matches_flipped_weights(card, n, cin, cout):
     assert float(y[-5:].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("n,cout", [(1000, 32), (777, 20), (3000, 40)])
+@pytest.mark.parametrize("n,cout", [
+    (1000, 32), (777, 20), (3000, 40),
+    # a row count that 4 does not divide (a ragged last tile whose k5 run
+    # is not 16-byte sized), fewer rows than one 64-row tile, cout 64
+    (1001, 32), (50, 32), (2000, 64),
+])
 def test_banded_stem_matches_plain(card, n, cout):
     x, nbr, w = _inputs(n, 3, cout, 125, n, card)
     _check(banded_stem_conv, banded_stem_conv_reference, x, nbr, w,
            banded_stem_conv)
+
+
+@pytest.mark.parametrize("n,cout", [(1001, 32), (50, 40)])
+def test_stem_prep_casts_rows_and_weights(card, n, cout):
+    """The prep pass: x as bf16 rows of 4 channels (the 4th 0) with a zero
+    row after them, and every weight once in the image, rounded to bf16,
+    the padding 0."""
+    x, _, w = _inputs(n, 3, cout, 125, 7, card)
+    xb, wimg = stem_prep(x, w)
+    torch.cuda.synchronize()
+    assert xb.shape == (n + 1, 4)
+    assert torch.equal(xb[:n, :3], x.to(torch.bfloat16))
+    assert float(xb[:, 3].abs().max()) == 0.0 and float(xb[n].abs().max()) == 0.0
+    assert wimg.numel() == stem_weight_image_numel(cout)
+    img = wimg.float()
+    assert int((img != 0).sum()) == w.numel()
+    assert torch.equal(img[img != 0].sort().values,
+                       w.to(torch.bfloat16).float().flatten().sort().values)
+
+
+def _scene_k5(points, seed):
+    """The stem's level-0 map of sorted voxels with 300 pad rows."""
+    from agile3d_torch.sparse.kernel_maps import build_pyramid
+    from agile3d_torch.sparse.quantize import sparse_quantize
+
+    coords = np.random.default_rng(seed).random((points, 3)).astype(np.float32)
+    vox, _, _ = sparse_quantize(coords * 1.5, 0.05)
+    k5 = build_pyramid(vox).levels[0].k5
+    return torch.from_numpy(np.concatenate(
+        [k5, np.full((300, 125), -1, np.int32)]))
+
+
+@pytest.mark.parametrize("points,cout", [(20000, 32), (8000, 20), (8000, 40),
+                                         (20000, 64)])
+def test_banded_stem_on_scene_maps(card, points, cout):
+    """Sorted scene maps, where the neighbours of a tile's rows lie near
+    each other (the main path's case)."""
+    k5 = _scene_k5(points, cout)
+    g = torch.Generator().manual_seed(points + cout)
+    x = torch.randn(k5.shape[0], 3, generator=g)
+    x[-300:] = 0.0
+    w = torch.randn(125, 3, cout, generator=g) * 375 ** -0.5
+    x, k5, w = x.to(card), k5.to(card), w.to(card)
+    _check(banded_stem_conv, banded_stem_conv_reference, x, k5, w,
+           banded_stem_conv)
+
+
+def test_banded_stem_with_absent_tiles(card):
+    """Every other 64-row tile absent: those rows come out exactly 0."""
+    x, nbr, w = _inputs(1300, 3, 32, 125, 11, card)
+    nbr = _absent_tiles(nbr)
+    _check(banded_stem_conv, banded_stem_conv_reference, x, nbr, w,
+           banded_stem_conv)
+    y = banded_stem_conv(x, nbr, w)
+    torch.cuda.synchronize()
+    for r0 in range(0, 1300, 128):
+        assert float(y[r0:r0 + 64].abs().max()) == 0.0
+
+
+def test_banded_stem_refuses_an_unaligned_map(card):
+    """k5 is read by bulk copy from 16-byte boundaries: a view that starts
+    one row into a buffer (500 bytes) is refused, not copied."""
+    x, nbr, w = _inputs(200, 3, 32, 125, 2, card)
+    buf = torch.cat([nbr[:1], nbr])
+    view = buf[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    before = banded_stem_conv.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        banded_stem_conv(x, view, w)
+    assert banded_stem_conv.launches == before
+    assert torch.equal(banded_stem_conv(x, view.clone(), w),
+                       banded_stem_conv(x, nbr, w))
 
 
 def test_wrappers_refuse_bad_inputs(card):
@@ -280,6 +362,68 @@ def test_banded_window_matches_plain(card, points, cin, cout, max_rows):
         full = banded_conv_reference(x, k3, w)
         assert float((y - full).abs().max()) <= 1e-3 * (
             float(full.abs().max()) + 1.0)
+
+
+def _window_check(card, k3, plan, cin, cout, seed):
+    """The window kernel against its plain version on k3 under ``plan``;
+    the result."""
+    n = k3.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, cin, generator=g)
+    w = torch.randn(27, cin, cout, generator=g) * (27 * cin) ** -0.5
+    x, k3, w, plan = x.to(card), k3.to(card), w.to(card), plan.to(card)
+    before = banded_window_conv.launches
+    y = banded_window_conv(x, k3, plan, w)
+    torch.cuda.synchronize()
+    assert banded_window_conv.launches == before + 1
+    ref = banded_window_conv_reference(x, k3, plan, w)
+    err = float((y - ref).abs().max())
+    assert err <= 1e-3 * (float(ref.abs().max()) + 1.0), err
+    return y
+
+
+@pytest.mark.parametrize("cin", [96, 128])
+def test_banded_window_at_the_longest_window(card, cin):
+    """A random map's windows capped at max_window_rows: every CTA's slot
+    holds two windows of the longest length the kernel takes (one slot),
+    and the neighbours past the cap drop out."""
+    k3 = _inputs(3000, 1, 1, 27, cin, "cpu")[1]
+    cap = max_window_rows(27, 96)
+    plan = window_plan(k3, max_rows=cap)
+    assert plan.max_length == cap and not plan.covers
+    assert window_layout(27, 96, cap)[0] == 1
+    _window_check(card, k3, plan, cin, 96, cin)
+
+
+def test_banded_window_drops_neighbours_outside_capped_windows(card):
+    """A scene map with its windows capped below their length: the kernel
+    drops the neighbours past the cap as the plain version does, and keeps
+    the rest."""
+    k3 = _scene_k3(20000, 3)
+    plan = window_plan(k3, max_rows=window_plan(k3).max_length // 2)
+    mask = window_mask(k3, plan)
+    outside = int(((k3 >= 0) & ~mask).sum())
+    assert outside > 0 and int(mask.sum()) > outside
+    y = _window_check(card, k3, plan, 96, 96, 4)
+    assert float(y[-300:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("cin,cout", [(96, 96), (128, 64)])
+def test_banded_window_with_an_empty_plan_block(card, cin, cout):
+    """A 256-row CTA whose second 128-row plan block has no neighbour (no
+    window), and one whose first has none: those rows come out exactly 0,
+    the other block's as the plain version."""
+    k3 = _scene_k3(20000, 5).clone()
+    k3[384:512] = -1    # block 3: CTA 1's second block
+    k3[1024:1152] = -1  # block 8: CTA 4's first block
+    plan = window_plan(k3)
+    assert plan.covers
+    assert int(plan.length[3].max()) == 0 and int(plan.length[8].max()) == 0
+    assert int(plan.length[2].max()) > 0 and int(plan.length[9].max()) > 0
+    y = _window_check(card, k3, plan, cin, cout, 6)
+    assert float(y[384:512].abs().max()) == 0.0
+    assert float(y[1024:1152].abs().max()) == 0.0
+    assert float(y[256:384].abs().max()) > 0.0
 
 
 def test_banded_window_refuses_a_window_that_does_not_fit(card):

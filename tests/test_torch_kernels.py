@@ -149,6 +149,30 @@ def test_kernel_tiles_and_image_sizes():
     assert row_image_numel(64, 200) == 64 * 4 * 64
 
 
+def test_stem_tiles_and_image_sizes():
+    """The stem kernel's sizes: 64-row tiles whose k5 rows are one 16-byte
+    sized run (bulk copy), a 32 KB weight image per 32-column tile, and a
+    ring of 3 tiles beside one image within a block's shared memory."""
+    from agile3d_torch.ops.banded_stem import (
+        STAGE_BYTES,
+        stem_smem_bytes,
+        stem_tiles,
+        stem_weight_image_numel,
+    )
+
+    assert STAGE_BYTES == 64 * 125 * 4 == 32000 and STAGE_BYTES % 16 == 0
+    assert [stem_tiles(n) for n in (1, 64, 65, 1001, 196608)] == \
+        [1, 1, 2, 16, 3072]
+    # the ragged last tile of 1,001 rows: 41 rows, not a 16-byte multiple
+    assert (1001 - 15 * 64) * 500 % 16 != 0
+    # K = 125 offsets x 4 channels padded to 512, by 32 columns, bf16
+    assert stem_weight_image_numel(32) * 2 == 32 * 1024
+    assert [stem_weight_image_numel(c) for c in (20, 40, 64)] == \
+        [512 * 32, 2 * 512 * 32, 2 * 512 * 32]
+    assert stem_smem_bytes() == 1024 + 32768 + 3 * 32000 + 7 * 8
+    assert stem_smem_bytes() <= 232448
+
+
 def test_transposed_conv_reads_flipped_weights():
     """dX's form on the CPU: transposed=True with a forward's [k, cout,
     cin] weights is the conv with flip(w, 0).transpose(1, 2), and

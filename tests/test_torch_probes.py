@@ -26,6 +26,7 @@ from agile3d_torch.ops.banded_window import (
     offset_clusters,
     window_mask,
     window_plan,
+    window_layout,
     window_stats,
     window_work,
 )
@@ -130,7 +131,7 @@ def test_window_plan_covers_scene_and_equals_banded_conv(scene_pyramid,
                                                          level):
     lv = scene_pyramid.levels[level]
     k3 = torch.from_numpy(lv.k3)
-    plan = window_plan(lv.k3, max_rows=max_window_rows(27, 128, 96))
+    plan = window_plan(lv.k3, max_rows=max_window_rows(27, 96))
     assert plan.covers and plan.max_length > 0
     n = k3.shape[0]
     assert plan.start.shape == (-(-n // 128), 3)
@@ -215,13 +216,36 @@ def test_bound_helpers_count_work():
 
 
 def test_max_window_rows_fills_shared_memory():
-    """The longest window that fits beside the indices and two weight
-    tiles: 610 rows at cin 128, 858 at cin 96 (cout 96, 27 offsets)."""
-    for cin, rows in ((128, 610), (96, 858)):
-        assert max_window_rows(27, cin, 96) == rows
-        row = 2 * (cin + 8)
-        used = 128 * 27 * 4 + 2 * 96 * row + (rows + 1) * row
-        assert used <= 232448 < used + row
+    """One window slot holds a CTA's two windows of the longest length and
+    a zero row, beside the weight ring (4 stages of bn x 128 bytes), 12
+    barriers, the three clusters' descriptors and the plan's order and
+    bounds: 631 rows at cout 96, 574 at cout 128 (a window row is one
+    64-channel slice, whatever the input width)."""
+    for cout, bn, rows in ((96, 96, 631), (128, 128, 574)):
+        assert max_window_rows(27, cout) == rows
+        desc = (3 * 10 + 27 + 4) * 4
+        used = 1024 + 4 * bn * 128 + 12 * 8 + desc + (2 * rows + 1) * 144
+        assert used <= 232448 < used + 2 * 144
+
+
+def test_window_layout_takes_two_slots_where_they_fit():
+    """The smoke scene's plan (longest window 199 rows) takes two slots
+    and staged indices; the probe scene's (556) one slot without them."""
+    assert window_layout(27, 96, 199) == (2, True, 534)
+    assert window_layout(27, 96, 556) == (1, False, 1262)
+    assert window_layout(27, 96, 631)[0] == 1
+    with pytest.raises(ValueError):
+        window_layout(27, 96, 632)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_max_window_rows_cover_scene_windows(scene_pyramid, level):
+    """At the eval shapes (96 -> 96, 128 -> 96) the kernel takes the
+    longest window of the scene's maps, so its plan still covers."""
+    k3 = scene_pyramid.levels[level].k3
+    limit = max_window_rows(27, 96)
+    assert limit >= window_plan(k3).max_length
+    assert window_plan(k3, max_rows=limit).covers
 
 
 def test_probe_entry_points_run_on_cpu(capsys):
