@@ -141,6 +141,20 @@ def apply_click_override(pred: np.ndarray, clicks: HostClicks) -> np.ndarray:
     return out
 
 
+def click_override_device(pred: torch.Tensor, vox: torch.Tensor,
+                          obj: torch.Tensor) -> torch.Tensor:
+    """Clicked voxels forced to their object id on the device: a scatter-max
+    of ``obj + 1`` at the clicked voxels, then the prediction replaced
+    there, so the LARGEST object id wins where two clicks share a voxel.
+    pred [N] with vox / obj [MC], or pred [B, N] with vox / obj [B, MC];
+    slots with vox == -1 are ignored."""
+    n = pred.shape[-1]
+    tagged = torch.where(vox >= 0, obj.to(torch.int32) + 1, 0)
+    tag = torch.zeros(pred.shape, dtype=torch.int32, device=pred.device)
+    tag.scatter_reduce_(-1, vox.clamp(0, n - 1).long(), tagged, "amax")
+    return torch.where(tag > 0, tag - 1, pred.to(torch.int32))
+
+
 def iou_per_object(pred: torch.Tensor, labels: torch.Tensor,
                    valid: torch.Tensor, max_obj: int = 10):
     """IoU per object id 1..max_obj as float32 [max_obj], and whether each
@@ -154,3 +168,13 @@ def iou_per_object(pred: torch.Tensor, labels: torch.Tensor,
         ious.append(inter.float() / torch.clamp(union, min=1).float())
         present.append(g.sum() > 0)
     return torch.stack(ious), torch.stack(present)
+
+
+def mean_iou(pred: torch.Tensor, labels: torch.Tensor,
+             max_obj: int = 10) -> torch.Tensor:
+    """Mean IoU over the objects present in ``labels`` (a device scalar):
+    the scene's metric, on full-resolution labels."""
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    ious, present = iou_per_object(pred, labels, valid, max_obj)
+    return torch.where(present, ious, torch.zeros_like(ious)).sum() \
+        / torch.clamp(present.sum(), min=1)

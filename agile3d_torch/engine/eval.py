@@ -1,11 +1,13 @@
-"""Interactive evaluation rollout with the host loop (counterpart of the
-host-rollout path of the JAX package's ``engine/eval.py``).
+"""Interactive evaluation rollout (counterpart of the JAX package's
+``engine/eval.py``).
 
 Per scene: run the backbone once, then iterate click rounds -- decoder
 forward, clicked-voxel override, full-resolution IoU, click simulation --
 until the click budget is spent, writing one ``id scene obj clicks iou``
-CSV row per round. The model passes, IoU and boundary distances run on the
-engine's device; loop control and CSV writing stay on the host.
+CSV row per round. ``evaluate_dataset`` runs the rounds on the device by
+default (``engine/device_eval.py``); ``evaluate_scene`` here is the host
+loop, whose model passes, IoU and boundary distances run on the engine's
+device while loop control and CSV writing stay on the host.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from agile3d_torch.data.datasets import SceneBatch, collate_scenes
 from agile3d_torch.engine.clicks import (
     HostClicks,
     apply_click_override,
-    iou_per_object,
+    mean_iou,
     simulate_clicks,
 )
+from agile3d_torch.engine.device_eval import evaluate_scene_device
 from agile3d_torch.models.agile3d import Agile3D, ClickState
 from agile3d_torch.sparse.grid import to_device
 
@@ -119,12 +122,7 @@ class InteractiveEngine:
         """Devoxelized mean IoU over the objects present in the labels."""
         pred_full = torch.from_numpy(pred_vox[inverse_map]).to(self.device)
         lab = torch.from_numpy(labels_full).to(self.device)
-        valid = torch.ones_like(lab, dtype=torch.bool)
-        ious, present = iou_per_object(pred_full, lab, valid,
-                                       self.cfg.model.max_fg_objects)
-        mean = torch.where(present, ious, torch.zeros_like(ious)).sum() \
-            / torch.clamp(present.sum(), min=1)
-        return float(mean)
+        return float(mean_iou(pred_full, lab, self.cfg.model.max_fg_objects))
 
 
 def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
@@ -181,15 +179,18 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
 
 def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
                      max_num_clicks: int = 20, seed: int = 42,
-                     log=print) -> str:
+                     log=print, device_rollout: bool = True) -> str:
     """Scenes in order, one CSV; the caller runs the evaluator on it. Logs
-    the final IoU of every tenth scene."""
+    the final IoU of every tenth scene. ``device_rollout`` runs each
+    scene's rounds >= 1 on the device (``evaluate_scene_device``), else
+    the host loop (``evaluate_scene``); the rows are the same."""
+    scene_fn = evaluate_scene_device if device_rollout else evaluate_scene
     rng = random.Random(seed)
     with open(results_file, "w") as f:
         for i in range(len(dataset)):
             batch = collate_scenes([dataset[i]], engine.cfg.buckets)
-            rows = evaluate_scene(engine, batch, instance_id=i, rng=rng,
-                                  max_num_clicks=max_num_clicks)
+            rows = scene_fn(engine, batch, instance_id=i, rng=rng,
+                            max_num_clicks=max_num_clicks)
             f.write("\n".join(rows) + "\n")
             if i % 10 == 0:
                 log(f"[{i + 1}/{len(dataset)}] {batch.scene_names[0]} "

@@ -5,7 +5,9 @@ Per batch:
   1. collate the scenes; per sample draw a random object subset (1..10
      objects) and remap the labels (``prepare_batch``, seeded per batch);
   2. run the backbone once in training mode without gradients and roll out
-     a random number (0..19) of simulated-click rounds (``rollout_clicks``);
+     a random number (0..19) of simulated-click rounds (``rollout_clicks``
+     on the host, or ``engine/device_train.py::train_rollout`` on the
+     device);
   3. one supervised step with gradients through the decoder and the
      backbone: click-weighted CE + dice + aux losses, global-norm clipping,
      AdamW (``make_train_step``), and the BatchNorm running statistics of
@@ -25,6 +27,7 @@ import torch
 from agile3d_torch.config import Config
 from agile3d_torch.data.datasets import collate_scenes
 from agile3d_torch.engine.clicks import HostClicks, simulate_clicks
+from agile3d_torch.engine.device_train import train_rollout
 from agile3d_torch.engine.eval import InteractiveEngine, stack_clicks
 from agile3d_torch.models.agile3d import Agile3D, ClickState
 from agile3d_torch.models.backbone import commit_bn_stats
@@ -232,15 +235,32 @@ def click_state(clicks: list[HostClicks], max_clicks: int, device) -> ClickState
     return stack_clicks(clicks, mc, device)
 
 
+def device_click_state(cs: ClickState, counts: torch.Tensor,
+                       max_clicks: int) -> ClickState:
+    """The device rollout's click table cut or padded (vox -1) to 64 slots
+    when every sample has at most 64 clicks, else to ``max_clicks``; it
+    stays on the device."""
+    mc = 64 if int(counts.max()) <= 64 else max_clicks
+    b, have = cs.vox.shape
+    if have >= mc:
+        return ClickState(*(t[:, :mc] for t in cs))
+    pad = lambda t, v: torch.cat([t, t.new_full((b, mc - have), v)], dim=1)
+    return ClickState(pad(cs.vox, -1), pad(cs.obj, 0), pad(cs.time, 0))
+
+
 def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
                     cfg: Config, epoch: int, *, np_rng: np.random.Generator,
                     py_rng: pyrandom.Random, order: np.ndarray | None = None,
-                    log=print, print_freq: int = 10) -> dict:
+                    log=print, print_freq: int = 10,
+                    device_rollout: bool = False) -> dict:
     """One epoch over ``dataset`` in batches of ``cfg.train.batch_size``
     (the last may be short). The order and every batch's subsample seed
-    are drawn from ``np_rng`` before the first batch. Returns the epoch's
-    averages (loss, grad_norm, mIoU, loss_bce, loss_dice). Raises
-    FloatingPointError on a non-finite loss."""
+    are drawn from ``np_rng`` before the first batch. ``device_rollout``
+    runs each batch's click rollout on the device: its round count comes
+    from ``py_rng`` and its generator's seed from ``np_rng``, drawn where
+    the JAX package draws them. Returns the epoch's averages (loss,
+    grad_norm, mIoU, loss_bce, loss_dice). Raises FloatingPointError on a
+    non-finite loss."""
     bs = cfg.train.batch_size
     n = len(dataset)
     if order is None:
@@ -256,18 +276,30 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
 
         # rollout, with the backbone normalising as the supervised pass will
         scene = engine.run_backbone(batch, training=True)
-        raw_per_sample, off = [], 0
-        for i in range(b):
-            raw_per_sample.append(batch.raw[off: off + n_valid[i]])
-            off += n_valid[i]
-        clicks = rollout_clicks(engine, scene, labels_new, num_obj,
-                                raw_per_sample, n_valid, py_rng, cfg)
+        labels_dev = torch.from_numpy(labels_new).to(dev)
+        num_obj_dev = torch.from_numpy(num_obj).to(dev)
+        if device_rollout:
+            num_iters = py_rng.randint(0, 19)
+            gen = torch.Generator(device=dev).manual_seed(
+                int(np_rng.integers(2 ** 31)))
+            max_label = cfg.model.max_fg_objects
+            cs, counts = train_rollout(
+                engine.model, scene, labels_dev, num_obj_dev, num_iters, gen,
+                engine._click_bucket((num_iters + 1) * max_label), max_label)
+            clicks = device_click_state(cs, counts, cfg.model.max_clicks)
+        else:
+            raw_per_sample, off = [], 0
+            for i in range(b):
+                raw_per_sample.append(batch.raw[off: off + n_valid[i]])
+                off += n_valid[i]
+            clicks = click_state(
+                rollout_clicks(engine, scene, labels_new, num_obj,
+                               raw_per_sample, n_valid, py_rng, cfg),
+                cfg.model.max_clicks, dev)
         del scene
 
-        out = train_step(engine.device_batch(batch),
-                         click_state(clicks, cfg.model.max_clicks, dev),
-                         torch.from_numpy(labels_new).to(dev),
-                         torch.from_numpy(num_obj).to(dev))
+        out = train_step(engine.device_batch(batch), clicks, labels_dev,
+                         num_obj_dev)
         tot = float(out["loss"])
         if not np.isfinite(tot):
             raise FloatingPointError(f"Loss is {tot}, stopping training")

@@ -1,7 +1,8 @@
 """Interactive multi-object evaluation: ``python -m agile3d_torch.eval_multi_obj``.
 
-Runs the clicks-per-object rollout over the validation list with the host
-loop, writes ``<output_dir>/val_results_multi.csv`` and prints the
+Runs the clicks-per-object rollout over the validation list, its rounds
+after the first on the device (``--host_rollout``: the host loop, the
+same rows), writes ``<output_dir>/val_results_multi.csv`` and prints the
 evaluator's NoC@tau / IoU@k dict. ``--checkpoint`` takes a reference
 ``.pth``; without one the weights are random, drawn from ``--seed``.
 
@@ -42,6 +43,8 @@ def get_args_parser():
     p.add_argument("--output_dir", default="results", type=str)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
+    p.add_argument("--host_rollout", action="store_true",
+                   help="per-round host loop instead of the device rollout")
     return p
 
 
@@ -63,7 +66,7 @@ def main(args, log=print) -> dict:
     results_file = os.path.join(args.output_dir, "val_results_multi.csv")
     evaluate_dataset(engine, dataset, results_file,
                      max_num_clicks=args.max_num_clicks, seed=args.seed,
-                     log=log)
+                     log=log, device_rollout=not args.host_rollout)
     results = EvaluatorMO(args.val_list, results_file).eval_results()
     log(results)
     return results

@@ -11,8 +11,12 @@ interactive validation and prints the evaluator's metrics.
     python -m agile3d_torch.main --scan_folder SCANS --train_list TRAIN.json \\
         --val_list VAL.json [--device cuda] [--epochs N] [--batch_size 5]
 
+``--device_rollout`` runs each step's click rollout on the device
+(``engine/device_train.py``) instead of the host loop; the validation runs
+the host loop, as the JAX package's does.
+
 Not in this CLI yet: ``--resume`` (no optimizer checkpoints), data
-parallelism, the on-device rollout and wandb logging.
+parallelism and wandb logging.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ def get_args_parser():
     p.add_argument("--max_num_clicks", default=20, type=int)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
+    p.add_argument("--device_rollout", action="store_true",
+                   help="run the training click rollout on the device "
+                        "instead of the per-round host loop")
     return p
 
 
@@ -115,7 +122,8 @@ def main(args, log=print) -> dict:
     start = time.time()
     for epoch in range(cfg.train.epochs):
         stats = train_one_epoch(engine, train_step, dataset_train, cfg, epoch,
-                                np_rng=np_rng, py_rng=py_rng, log=log)
+                                np_rng=np_rng, py_rng=py_rng, log=log,
+                                device_rollout=args.device_rollout)
         history["epochs"].append(stats)
 
         paths = [os.path.join(args.output_dir, "checkpoint.pth")]
@@ -129,7 +137,7 @@ def main(args, log=print) -> dict:
             csv = os.path.join(val_dir, f"val_results_epoch_{epoch}.csv")
             evaluate_dataset(engine, dataset_val, csv,
                              max_num_clicks=cfg.train.max_num_clicks,
-                             seed=seed, log=log)
+                             seed=seed, log=log, device_rollout=False)
             res = EvaluatorMO(args.val_list, csv).eval_results()
             history["val"][epoch] = res
             log(res)

@@ -1,7 +1,9 @@
 """Row gather from a table held in shared memory: a hand-written CUDA
 kernel for Hopper (``csrc/row_gather.cu``) and its plain PyTorch version.
 
-    out[i] = x[idx[i]],  x [W, C] f32 resident in one block's shared memory
+    out[i] = x[idx[i]],  x [W, C] f32 resident in the shared memory of a
+                         thread-block cluster (each of its 16 CTAs
+                         holds ceil(W / 16) rows)
 
 Replaces the TPU probe ``tools/probe_vmem_gather.py``'s ``gather_kernel``
 and ``gather_kernel_ta``: one function (a row gather from a VMEM-resident
@@ -24,7 +26,9 @@ from agile3d_torch.ops import cuda_build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SMEM_MAX = 232448  # shared memory one block may use on the H100 (227 KB)
-_ROWS_PER_BLOCK = 256  # the least output rows a block is given
+SLICE_MAX = SMEM_MAX - 16  # of which the table's slice (less the mbarrier)
+CLUSTER = 16  # CTAs a table is spread over (timed against 1-8 on the H100)
+TABLE_MAX = CLUSTER * SLICE_MAX  # the largest table: 3,718,912 bytes
 
 
 def row_gather_reference(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -40,17 +44,22 @@ def gather_work(w: int, c: int, m: int,
     return 0.0, float(itemsize * (w * c + m * c) + 4 * m)
 
 
+def slice_bytes(w: int, c: int) -> int:
+    """Bytes of the table one CTA holds: ceil(w / CLUSTER) rows of c f32."""
+    return -(-w // CLUSTER) * c * 4
+
+
 def _lib():
     lib = cuda_build.load("row_gather")
     fn = lib.agile3d_smem_row_gather
-    fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_int64, _I, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_int64, _P]
     fn.restype = _I
     return fn
 
 
 def smem_row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [W, C] f32 with W * C * 4 bytes within one block's shared memory,
-    idx [M] int32 in [0, W) -> [M, C] f32."""
+    """x [W, C] f32 that fits a cluster's shared memory (``TABLE_MAX``
+    bytes), idx [M] int32 in [0, W) -> [M, C] f32."""
     if x.device.type == "cpu":
         return row_gather_reference(x, idx)
     if not (x.is_cuda and idx.device == x.device):
@@ -67,17 +76,16 @@ def smem_row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if c % 4 != 0:
         raise ValueError(f"{c} channels: the kernel copies 16-byte pieces, "
                          "so C must be a multiple of 4")
-    if w * c * 4 > SMEM_MAX:
+    if slice_bytes(w, c) > SLICE_MAX:
         raise ValueError(f"a {w} x {c} f32 table ({w * c * 4} bytes) exceeds "
-                         f"one block's shared memory ({SMEM_MAX} bytes)")
+                         f"the shared memory of a {CLUSTER}-CTA cluster "
+                         f"({TABLE_MAX} bytes)")
     m = idx.shape[0]
     out = torch.empty((m, c), dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(sms, -(-m // _ROWS_PER_BLOCK)))
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), w, c, m, blocks,
+        rc = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), w, c, m,
                 stream)
     if rc != 0:
         raise RuntimeError(f"smem_row_gather kernel launch failed: CUDA error {rc}")

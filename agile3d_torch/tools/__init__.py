@@ -20,15 +20,19 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks: dense bf16 tensor-core rate and HBM3 bandwidth
+# H100 SXM data-sheet peaks: dense bf16 tensor-core rate, FP32 rate on the
+# CUDA cores (an FMA counted as two operations) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 66.9e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the card (ms) for ``flops`` bf16 operations and
-    ``nbytes`` of device memory traffic, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time on the card (ms) for ``flops`` operations at ``peak``
+    (bf16 tensor-core products unless given) and ``nbytes`` of device
+    memory traffic, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
 

@@ -11,8 +11,9 @@ time (each byte read or written once):
       block's shared memory, 384 x 128 f32 (192 KB), with 27 x 1024 random
       indices (the TPU probe's B x K), beside ``torch.index_select`` at the
       same shape;
-  (b) ``torch.index_select`` at the TPU probe's own table, 4,096 x 128 f32
-      (2 MB, resident in L2);
+  (a2) ``smem_row_gather`` at the TPU probe's own table, 4,096 x 128 f32
+      (2 MB, spread over a 16-CTA cluster's shared memory);
+  (b) ``torch.index_select`` at that table (resident in L2);
   (c) the scene-scale gather: 262,144 random rows of 262,144 x 128 f32;
   (d) ``x[k3]`` of a level-0 map at 96 bf16 channels (-1 picks an appended
       zero row): the gather ``banded_conv`` does, at the maps' locality.
@@ -41,8 +42,8 @@ from agile3d_torch.tools import (
 )
 
 SMEM_ROWS, CHANNELS = 384, 128   # (a): 192 KB of f32
-TPU_ROWS = 4096                  # (b): the TPU probe's window
-GATHERS = 27 * 1024              # (a), (b): the TPU probe's B x K indices
+TPU_ROWS = 4096                  # (a2), (b): the TPU probe's table
+GATHERS = 27 * 1024              # (a) to (b): the TPU probe's B x K indices
 SCENE_ROWS = 262144              # (c)
 MAP_CHANNELS = 96                # (d)
 
@@ -50,7 +51,8 @@ MAP_CHANNELS = 96                # (d)
 def run(k3: np.ndarray, device, generator, log=print) -> dict:
     """Lines (a) to (d) on ``device`` (``generator`` lives there), with the
     level-0 map k3 [N, 27] (host, int32) for (d). Returns the numbers
-    printed, and in "a_equal" whether the kernel gave ``x[idx]`` exactly."""
+    printed, and in "a_equal" and "a2_equal" whether the kernel gave
+    ``x[idx]`` exactly."""
     device = torch.device(device)
     on = device_label(device)
     rand = lambda *shape: torch.rand(shape, generator=generator, device=device)
@@ -82,6 +84,11 @@ def run(k3: np.ndarray, device, generator, log=print) -> dict:
 
     xt = rand(TPU_ROWS, CHANNELS)
     it = ints(TPU_ROWS, GATHERS)
+    res["a2_equal"] = bool(torch.equal(smem_row_gather(xt, it),
+                                       row_gather_reference(xt, it)))
+    line("a2_kernel", "(a2) smem_row_gather, the TPU probe's table",
+         lambda: smem_row_gather(xt, it), TPU_ROWS, CHANNELS, GATHERS)
+    log(f"(a2) smem_row_gather equals x[idx]: {res['a2_equal']}")
     line("b", "(b) torch.index_select, L2-resident table",
          lambda: torch.index_select(xt, 0, it), TPU_ROWS, CHANNELS, GATHERS)
     del xt, it

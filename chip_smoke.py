@@ -15,15 +15,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 kernel so that the host's launch work is not timed) for the
                 kernel, the plain version and a library yardstick (one bf16
                 gather and one cuBLAS matmul, timed here only), beside the
-                card's least time for the same work;
+                card's least time for the same work; then the boundary
+                distance of the device rollout, bit for bit against its
+                plain version, at an eval round's and a training round's
+                shapes, a ragged N, all rows invalid and one cluster;
   3. probes -- the kernels of the TPU probes' counterparts: the windowed
                 banded k3 conv (its plan covers every neighbour of the
                 smoke scene's two finest maps) at the eval k3 shapes against
                 its plain version and ``banded_conv_reference``, timed
-                beside ``banded_conv``; the shared-memory row gather at the
-                TPU probe's shape, exact against ``x[idx]``; then both
-                probe entry points (``agile3d_torch.tools``, in process),
-                with the two kernels' launches counted around them;
+                beside ``banded_conv``; the cluster row gather from the 384-
+                row table and the TPU probe's own 4,096-row table, exact
+                against ``x[idx]``, timed; then both probe entry points
+                (``agile3d_torch.tools``, in process), with the two kernels'
+                launches counted around them;
   4. reference -- the full-width model on a mid-size scene on the card
                 (kernels on, then off) against the same model on the CPU,
                 the plain float32 path that the CPU tests hold against the
@@ -35,16 +39,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 counted;
   6. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
                 the synthetic smoke scene (400,000 points, 8 objects) at full
-                Res16UNet34C width with seeded random weights, 2 clicks per
-                object, with the kernels' launch counts read around it (the
-                probes' kernels: 0);
-  7. train main path -- ``python -m agile3d_torch.main`` (in process): 15
+                Res16UNet34C width with seeded random weights, 5 clicks per
+                object (the click table crosses a bucket): the default
+                device rollout, then ``--host_rollout``, each with the
+                kernels' launch counts read around it (one boundary-distance
+                launch per device round; the probes' kernels: 0); the CSV
+                rows of the two must agree, and the decoder must see the
+                same click bucket in each round of both;
+  7. train main path -- ``python -m agile3d_torch.main`` (in process): 10
                 synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
-                level-0 bucket), one epoch of 3 steps and one validation at
+                level-0 bucket), one epoch of 2 steps and one validation at
                 full width, launches counted per step (24 k3, 8 dW, 0
                 stem; the probes' kernels 0), the rollout, the supervised
                 step and the backbone's forward and backward timed with
-                CUDA events.
+                CUDA events; then one step with ``--device_rollout`` at a
+                fixed round count, whose batch then goes through the device
+                and the host rollouts with the click order pinned: the
+                click sets must agree.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -59,6 +70,7 @@ import glob
 import json
 import math
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -76,18 +88,22 @@ PEAK_HBM_BYTES = 3.35e12
 
 SMOKE_SCENE = dict(num_scenes=1, num_obj=8, n_points=400000, extent=8.0, seed=0)
 REF_SCENE = dict(num_scenes=1, num_obj=4, n_points=60000, extent=4.0, seed=1)
-MAX_NUM_CLICKS = 2
-# training: 15 scenes of ~94,000 voxels (ScanNet-sized), 5 per batch, so
-# every batch pads to the 524,288-row level-0 bucket; 3 steps in one epoch
-TRAIN_SCENES = dict(num_scenes=15, num_obj=8, n_points=190000, extent=6.0,
+# 5 clicks per object: 33 rounds after round 0, whose decoder sees 8-40
+# clicks, so the click table crosses the 32 -> 64 bucket
+MAX_NUM_CLICKS = 5
+# training: 10 scenes of ~94,000 voxels (ScanNet-sized), 5 per batch, so
+# every batch pads to the 524,288-row level-0 bucket; 2 steps in one epoch
+TRAIN_SCENES = dict(num_scenes=10, num_obj=8, n_points=190000, extent=6.0,
                     seed=2)
 TRAIN_BATCH = 5
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # the training reference: two scenes of ~25,000 voxels in one batch (a
 # 65,536-row level 0, so its four k3 convs take the kernels), small enough
 # for two full-width steps on the CPU
 TRAIN_REF_SCENES = dict(num_scenes=2, num_obj=4, n_points=36000, extent=4.0,
                         seed=1)
+# the training step with --device_rollout: its rounds (0..DEVICE_ITERS)
+DEVICE_ITERS = 5
 DEVICE = "cuda"
 
 
@@ -145,12 +161,14 @@ def bound(nbr, cin: int, cout: int) -> tuple[float, str]:
 
 
 def tpu_kernel(module: str, func: str) -> str:
-    """``file:line`` of the Pallas kernel that a CUDA kernel replaces: the
-    definition of ``func`` in ``ops/<module>`` of the JAX package beside the
-    port, or in ``tools/<module>`` for the TPU probes (read as text; nothing
-    of either is imported)."""
+    """``file:line`` of what a CUDA kernel replaces: the definition of
+    ``func`` in ``ops/<module>`` (a Pallas kernel) or ``engine/<module>``
+    (an XLA fusion) of the JAX package beside the port, or in
+    ``tools/<module>`` for the TPU probes (read as text; nothing of either
+    is imported)."""
     port = os.path.join(ROOT, "agile3d_torch")
-    paths = sorted(glob.glob(os.path.join(ROOT, "*", "ops", module)))
+    paths = sorted(glob.glob(os.path.join(ROOT, "*", "ops", module))
+                   + glob.glob(os.path.join(ROOT, "*", "engine", module)))
     paths.append(os.path.join(ROOT, "tools", module))
     for path in paths:
         if path.startswith(port + os.sep) or not os.path.exists(path):
@@ -159,8 +177,8 @@ def tpu_kernel(module: str, func: str) -> str:
             for i, line in enumerate(f, 1):
                 if line.startswith(f"def {func}("):
                     return f"{os.path.relpath(path, ROOT)}:{i}"
-    fail(f"no definition of {func} in ops/{module} of the JAX package or in "
-         f"tools/{module}")
+    fail(f"no definition of {func} in ops/ or engine/{module} of the JAX "
+         f"package or in tools/{module}")
 
 
 def phase_device(torch, cuda_build):
@@ -284,6 +302,91 @@ def phase_kernels(torch, cases):
     return rows
 
 
+def rollout_inputs(batch):
+    """(coords [B, Ns, 3], cluster [B, Ns], valid [B, Ns]) of a collated
+    batch as a rollout round after the zero prediction sees them: each
+    sample's raw coordinates in its rows, every labelled object an error
+    cluster (compact id 11 x label), the background correct (-1)."""
+    b, ns = batch.labels.shape
+    coords = np.zeros((b, ns, 3), np.float32)
+    off = 0
+    for i in range(b):
+        nv = int((batch.sample_idx[i] >= 0).sum())
+        coords[i, :nv] = batch.raw[off:off + nv]
+        off += nv
+    labels = batch.labels
+    cluster = np.where(labels > 0, labels * 11, -1).astype(np.int32)
+    return coords, cluster, labels >= 0
+
+
+def distance_cases(eval_batch, train_batch):
+    """(role, count, coords, cluster, valid) for the boundary-distance
+    kernel: an eval round (count: per eval round) and a training round, then
+    a ragged N, all rows invalid and a single cluster (count 0)."""
+    rng = np.random.default_rng(0)
+    n = 70001
+    ragged = ((rng.random((1, n, 3)) * 8).astype(np.float32),
+              rng.integers(-1, 12, (1, n)).astype(np.int32),
+              rng.random((1, n)) < 0.9)
+    n = 4096
+    invalid = ((rng.random((1, n, 3)) * 8).astype(np.float32),
+               rng.integers(-1, 12, (1, n)).astype(np.int32),
+               np.zeros((1, n), bool))
+    n = 50000
+    single = ((rng.random((1, n, 3)) * 8).astype(np.float32),
+              np.zeros((1, n), np.int32), np.ones((1, n), bool))
+    return [("eval round", 1, *rollout_inputs(eval_batch)),
+            ("train round", 1, *rollout_inputs(train_batch)),
+            ("ragged", 0, *ragged), ("all invalid", 0, *invalid),
+            ("one cluster", 0, *single)]
+
+
+def phase_distances(torch, cases):
+    """The boundary-distance kernel bit for bit against its plain version
+    on the card. No single PyTorch call computes the masked minimum, so it
+    has no library time."""
+    from agile3d_torch.ops.boundary_dist import (
+        boundary_distances_all,
+        boundary_distances_all_reference,
+        distance_work,
+    )
+    from agile3d_torch.tools import PEAK_FP32_FLOPS, bound_ms
+
+    rows = []
+    for role, count, *arrays in cases:
+        coords, cluster, valid = (torch.from_numpy(a).to(DEVICE)
+                                  for a in arrays)
+        b, n = cluster.shape
+        run = lambda: boundary_distances_all(coords, cluster, valid)
+        plain = lambda: boundary_distances_all_reference(coords, cluster,
+                                                         valid)
+        d, ref = run(), plain()
+        torch.cuda.synchronize()
+        tag = f"boundary_distances_all ({role}) {b}x{n}"
+        check(torch.equal(d, ref), f"{tag}: kernel differs from the plain "
+                                   f"version in {int((d != ref).sum())} rows")
+        n_keys = int(valid.sum())
+        big = b * n >= 100000
+        b_ms, b_by = bound_ms(*distance_work(cluster, valid),
+                              peak=PEAK_FP32_FLOPS)
+        row = dict(kernel="boundary_distances_all", role=role,
+                   shape=f"{b}x{n}", count=count, valid_keys=n_keys,
+                   finite=int(torch.isfinite(d).sum()), max_abs_err=0.0,
+                   bitwise_equal=True,
+                   ms=time_ms(torch, run, reps=5 if big else 10, warmup=1),
+                   plain_ms=time_ms(torch, plain, reps=2 if big else 5,
+                                    warmup=0),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "kernel_parity", **row})
+        rows.append(row)
+        del coords, cluster, valid, d, ref
+        torch.cuda.empty_cache()
+    check([r["finite"] for r in rows if r["role"] in ("all invalid",
+                                                      "one cluster")]
+          == [0, 0], "rows with no key of another cluster must be inf")
+    return rows
+
+
 def phase_probes(torch, eval_pyr, eval_dev):
     """The probes' kernels against their plain versions on the card, then
     the probe entry points with the launches counted. ``eval_pyr`` is the
@@ -366,27 +469,38 @@ def phase_probes(torch, eval_pyr, eval_dev):
             rows.append(row)
             del x, w, y, ref, full, xz, idx, ob
 
-    # the row gather at the TPU probe's shape: 27 x 1024 rows of a table
-    # that fits one block's shared memory
-    w_rows, c, m = (probe_smem_gather.SMEM_ROWS, probe_smem_gather.CHANNELS,
-                    probe_smem_gather.GATHERS)
-    x = torch.rand((w_rows, c), generator=g, device=DEVICE)
-    idx = torch.randint(0, w_rows, (m,), generator=g, device=DEVICE,
-                        dtype=torch.int32)
-    out = smem_row_gather(x, idx)
-    torch.cuda.synchronize()
-    check(torch.equal(out, row_gather_reference(x, idx)),
-          "smem_row_gather differs from x[idx]")
-    b_ms, b_by = bound_ms(*gather_work(w_rows, c, m))
-    row = dict(kernel="smem_row_gather", role="probe shape", rows=m, cin=c,
-               cout=c, count=1, table_rows=w_rows, max_abs_err=0.0,
-               ms=time_ms(torch, lambda: smem_row_gather(x, idx)),
-               plain_ms=time_ms(torch, lambda: row_gather_reference(x, idx)),
-               library_ms=time_ms(torch, lambda: torch.index_select(x, 0, idx)),
-               bound_ms=b_ms, bound_by=b_by)
-    emit({"phase": "probe_parity", **row})
-    rows.append(row)
-    del x, idx, out
+    # the row gather at the TPU probe's shape, 27 x 1024 rows, from a table
+    # that fits one CTA's shared memory and from the TPU probe's own table
+    # (a 16-CTA cluster's): exact, timed; beside them the least time a call
+    # shows here (a 16-byte zero_) and the output's bytes written alone
+    # (fill_)
+    c, m = probe_smem_gather.CHANNELS, probe_smem_gather.GATHERS
+    tiny = torch.zeros(4, device=DEVICE)
+    filled = torch.empty((m, c), device=DEVICE)
+    floor_ms = time_ms(torch, lambda: tiny.zero_())
+    store_ms = time_ms(torch, lambda: filled.fill_(1.0))
+    del tiny, filled
+    for w_rows in (probe_smem_gather.SMEM_ROWS, probe_smem_gather.TPU_ROWS):
+        x = torch.rand((w_rows, c), generator=g, device=DEVICE)
+        idx = torch.randint(0, w_rows, (m,), generator=g, device=DEVICE,
+                            dtype=torch.int32)
+        ref = row_gather_reference(x, idx)
+        out = smem_row_gather(x, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref),
+              f"smem_row_gather ({w_rows} rows) differs from x[idx]")
+        b_ms, b_by = bound_ms(*gather_work(w_rows, c, m))
+        row = dict(kernel="smem_row_gather", role="probe shape", rows=m,
+                   cin=c, cout=c, count=1, table_rows=w_rows, max_abs_err=0.0,
+                   ms=time_ms(torch, lambda: smem_row_gather(x, idx)),
+                   floor_ms=floor_ms, store_ms=store_ms,
+                   plain_ms=time_ms(torch, lambda: row_gather_reference(x, idx)),
+                   library_ms=time_ms(torch,
+                                      lambda: torch.index_select(x, 0, idx)),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "probe_parity", **row})
+        rows.append(row)
+        del x, idx, out, ref
     torch.cuda.empty_cache()
 
     # the probe path: both entry points at the smoke scene's level 0
@@ -409,7 +523,8 @@ def phase_probes(torch, eval_pyr, eval_dev):
     check(banded["covers"], "the probe's plan does not cover the map")
     check(banded["max_abs_err"] <= 1e-3 * (banded["ref_max"] + 1.0),
           f"probe: window kernel vs plain {banded['max_abs_err']}")
-    check(gather["a_equal"], "probe: smem_row_gather differs from x[idx]")
+    check(gather["a_equal"] and gather["a2_equal"],
+          "probe: smem_row_gather differs from x[idx]")
     check(all(v > 0 for v in launches.values()),
           f"a probe kernel was not launched on the probe path: {launches}")
     return rows, launches
@@ -497,30 +612,40 @@ def phase_reference(torch, tmp):
     check(agree_kern >= 0.99, f"card kernel labels agree {agree_kern}")
 
 
-def phase_main_path(torch, scans, val_list, out_dir):
-    """The eval entry point on the smoke scene, with the kernels' launches
-    counted around it and the backbone / decoder timed with CUDA events."""
+def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
+    """One run of the eval entry point, with the kernels' launches counted
+    around it and the backbone, the decoder calls (host loop) and the
+    device rounds timed with CUDA events. Returns what it measured."""
     from agile3d_torch import eval_multi_obj
+    from agile3d_torch.engine import device_eval
     from agile3d_torch.engine import eval as peval
     from agile3d_torch.ops.banded_conv import banded_conv
     from agile3d_torch.ops.banded_stem import banded_stem_conv
     from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.boundary_dist import boundary_distances_all
     from agile3d_torch.ops.row_gather import smem_row_gather
 
-    events = {"backbone": [], "mask": []}
+    events = {"backbone": [], "mask": [], "rounds": []}
     seen = {}
     orig = {"backbone": peval.InteractiveEngine.run_backbone,
-            "mask": peval.InteractiveEngine.run_mask}
+            "mask": peval.InteractiveEngine.run_mask,
+            "rounds": device_eval.rollout_rounds}
 
-    def timed(key):
-        def wrapper(self, *args, **kwargs):
-            seen["engine"] = self
+    def timed(key, method=True):
+        def wrapper(*args, **kwargs):
+            if method:
+                seen["engine"] = args[0]
             if key == "backbone":
-                seen["batch"] = args[0]
+                seen["batch"] = args[1]
+            if key == "rounds":
+                seen["widths"] = list(args[-2])
+            if key == "mask":  # the click bucket the host loop's decoder sees
+                seen.setdefault("widths", []).append(
+                    args[0]._click_bucket(args[2].count))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig[key](self, *args, **kwargs)
+            out = orig[key](*args, **kwargs)
             end.record()
             events[key].append((start, end))
             return out
@@ -528,10 +653,11 @@ def phase_main_path(torch, scans, val_list, out_dir):
 
     peval.InteractiveEngine.run_backbone = timed("backbone")
     peval.InteractiveEngine.run_mask = timed("mask")
-    args = eval_multi_obj.get_args_parser().parse_args([
-        "--scan_folder", scans, "--val_list", val_list, "--seed", "0",
-        "--max_num_clicks", str(MAX_NUM_CLICKS), "--output_dir", out_dir,
-        "--device", DEVICE])
+    device_eval.rollout_rounds = timed("rounds", method=False)
+    argv = ["--scan_folder", scans, "--val_list", val_list, "--seed", "0",
+            "--max_num_clicks", str(MAX_NUM_CLICKS), "--output_dir", out_dir,
+            "--device", DEVICE] + (["--host_rollout"] if host_rollout else [])
+    args = eval_multi_obj.get_args_parser().parse_args(argv)
     logged = []
 
     def log(msg):
@@ -543,52 +669,106 @@ def phase_main_path(torch, scans, val_list, out_dir):
     try:
         banded_conv.launches = banded_stem_conv.launches = 0
         banded_window_conv.launches = smem_row_gather.launches = 0
+        boundary_distances_all.launches = 0
         results = eval_multi_obj.main(args, log=log)
         torch.cuda.synchronize()
         launches = {"banded_conv": banded_conv.launches,
                     "banded_stem": banded_stem_conv.launches,
                     "banded_window_conv": banded_window_conv.launches,
-                    "smem_row_gather": smem_row_gather.launches}
+                    "smem_row_gather": smem_row_gather.launches,
+                    "boundary_distances_all": boundary_distances_all.launches}
     finally:
         peval.InteractiveEngine.run_backbone = orig["backbone"]
         peval.InteractiveEngine.run_mask = orig["mask"]
+        device_eval.rollout_rounds = orig["rounds"]
     wall_s = time.time() - t0
 
     csv = os.path.join(out_dir, "val_results_multi.csv")
     rows = [r.split(" ") for r in open(csv).read().strip().split("\n") if r]
     ious = [float(r[4]) for r in rows]
-    n_bb, n_mask = len(events["backbone"]), len(events["mask"])
-    check(len(rows) > 0 and all(len(r) == 5 for r in rows), "no CSV rows")
+    tag = "host rollout" if host_rollout else "device rollout"
+    n_bb = len(events["backbone"])
+    check(len(rows) > 0 and all(len(r) == 5 for r in rows),
+          f"{tag}: no CSV rows")
     check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in ious),
-          f"IoUs not finite in [0, 1]: {ious}")
+          f"{tag}: IoUs not finite in [0, 1]: {ious}")
     check(isinstance(results, dict) and results and results in logged,
-          "the evaluator dict was not printed")
-    check(n_bb == 1 and n_mask >= 1, f"{n_bb} backbone, {n_mask} mask calls")
+          f"{tag}: the evaluator dict was not printed")
+    check(n_bb == 1, f"{tag}: {n_bb} backbone calls")
     check(launches["banded_conv"] == 8 * n_bb,
-          f"k3 kernel launches {launches['banded_conv']} != 8 x {n_bb}")
+          f"{tag}: k3 kernel launches {launches['banded_conv']} != 8 x {n_bb}")
     check(launches["banded_stem"] == 1 * n_bb,
-          f"stem kernel launches {launches['banded_stem']} != {n_bb}")
+          f"{tag}: stem kernel launches {launches['banded_stem']} != {n_bb}")
     check(launches["banded_window_conv"] == launches["smem_row_gather"] == 0,
-          f"a probe kernel ran on the eval path: {launches}")
+          f"{tag}: a probe kernel ran on the eval path: {launches}")
+    rounds = len(rows) - 1  # the rows after round 0's
+    if host_rollout:
+        check(len(events["mask"]) >= 1 and not events["rounds"],
+              f"{tag}: {len(events['mask'])} decoder calls")
+        check(launches["boundary_distances_all"] == 0,
+              f"{tag}: the distance kernel ran on the host loop")
+    else:
+        check(not events["mask"] and len(events["rounds"]) == 1
+              and len(seen["widths"]) == rounds,
+              f"{tag}: {len(events['rounds'])} device rollouts")
+        check(launches["boundary_distances_all"] == rounds,
+              f"{tag}: distance kernel launches "
+              f"{launches['boundary_distances_all']} != {rounds} rounds")
+    elapsed = lambda pairs: [a.elapsed_time(b) for a, b in pairs]
+    return dict(rows=rows, ious=ious, launches=launches, wall_s=wall_s,
+                results=results, rounds=rounds,
+                backbone_first_ms=elapsed(events["backbone"])[0],
+                mask_ms=elapsed(events["mask"]),
+                rounds_ms=sum(elapsed(events["rounds"])),
+                widths=seen["widths"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                engine=seen["engine"], batch=seen["batch"])
 
-    bb_first = events["backbone"][0][0].elapsed_time(events["backbone"][0][1])
-    mask_ms = [s.elapsed_time(e) for s, e in events["mask"]]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+def phase_main_path(torch, scans, val_list, out_dir):
+    """The eval entry point on the smoke scene: the default device rollout,
+    then the host loop; the two CSVs must give the same rows (ID, scene,
+    object and click columns equal, IoUs within 1e-5)."""
+    dev = _eval_run(torch, scans, val_list, os.path.join(out_dir, "device"),
+                    host_rollout=False)
+    host = _eval_run(torch, scans, val_list, os.path.join(out_dir, "host"),
+                     host_rollout=True)
+    check(len(dev["rows"]) == len(host["rows"])
+          and [r[:4] for r in dev["rows"]] == [r[:4] for r in host["rows"]],
+          "device and host rollouts wrote other rows")
+    iou_diff = max(abs(a - b) for a, b in zip(dev["ious"], host["ious"]))
+    check(iou_diff <= 1e-5, f"device vs host rollout IoU differs by "
+                            f"{iou_diff}")
+    # the decoder's click-table width round by round: the budget crosses a
+    # bucket, and the device rounds see the host loop's (which stops calling
+    # the decoder once the scene converges)
+    widths = {"device": dev["widths"], "host": host["widths"]}
+    check(len(set(widths["host"])) > 1,
+          f"the click budget crosses no bucket: {widths['host']}")
+    check(widths["device"][:len(widths["host"])] == widths["host"],
+          f"the device rounds saw other click buckets: {widths}")
+
     # steady backbone: the same batch again, after the counts were read
-    engine, batch = seen["engine"], seen["batch"]
+    engine, batch = dev["engine"], dev["batch"]
     bb_ms = time_ms(torch, lambda: engine.run_backbone(batch), reps=5,
                     warmup=1)
     pyr = batch.pyramid
     emit({"phase": "main_path", "levels": [lv.num_valid for lv in pyr.levels],
           "rows": [lv.grid.shape[0] for lv in pyr.levels],
-          "csv_rows": len(rows), "backbone_calls": n_bb,
-          "mask_calls": n_mask, "launches": launches,
-          "backbone_first_ms": bb_first, "backbone_ms": bb_ms,
-          "mask_ms_median": statistics.median(mask_ms),
-          "mask_ms_first": mask_ms[0], "peak_mem_gib": peak_gib,
-          "final_iou": ious[-1], "wall_s": wall_s,
-          "evaluator": {k: finite(v) for k, v in results.items()}})
-    return launches
+          "csv_rows": len(dev["rows"]), "rounds": dev["rounds"],
+          "click_buckets": {w: widths["device"].count(w)
+                            for w in sorted(set(widths["device"]))},
+          "launches": dev["launches"], "launches_host": host["launches"],
+          "backbone_first_ms": dev["backbone_first_ms"], "backbone_ms": bb_ms,
+          "device_rounds_ms": dev["rounds_ms"],
+          "device_ms_per_round": dev["rounds_ms"] / dev["rounds"],
+          "mask_ms_median": statistics.median(host["mask_ms"]),
+          "mask_ms_first": host["mask_ms"][0],
+          "peak_mem_gib": max(dev["peak_gib"], host["peak_gib"]),
+          "final_iou": dev["ious"][-1], "iou_max_diff": iou_diff,
+          "wall_s": dev["wall_s"], "wall_s_host": host["wall_s"],
+          "evaluator": {k: finite(v) for k, v in dev["results"].items()}})
+    return dev["launches"]
 
 
 def _banded_levels(pyr) -> int:
@@ -946,20 +1126,202 @@ def phase_train_main_path(torch, scans, train_list, tmp):
             "banded_stem": launches[2], **probe_launches}
 
 
+def phase_train_device_rollout(torch, scans, train_list, tmp):
+    """``agile3d_torch.main.main --device_rollout`` (in process) for one
+    step of TRAIN_BATCH scenes, its rollout held at DEVICE_ITERS + 1 rounds,
+    with the launches counted and the rollout and the step timed with CUDA
+    events; then that batch through the device and the host rollouts with
+    the click order pinned (increasing draws; the host's identity shuffle):
+    the click sets must agree."""
+    from agile3d_torch import main as pmain
+    from agile3d_torch.engine import device_train
+    from agile3d_torch.engine import train as ptrain
+    from agile3d_torch.engine.eval import InteractiveEngine
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.boundary_dist import boundary_distances_all
+    from agile3d_torch.ops.row_gather import smem_row_gather
+
+    with open(train_list) as f:
+        first = dict(list(json.load(f).items())[:TRAIN_BATCH])
+    one_batch = os.path.join(tmp, "train_one_batch.json")
+    with open(one_batch, "w") as f:
+        json.dump(first, f)
+    out_dir = os.path.join(tmp, "train_device_out")
+
+    def counts():
+        return (banded_conv.launches, banded_conv_dw.launches,
+                banded_stem_conv.launches, boundary_distances_all.launches)
+
+    seen = {}
+    orig_rollout, orig_make = ptrain.train_rollout, pmain.make_train_step
+
+    def rollout(model, scene, labels, num_obj, num_iters, gen, mc, max_label):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = counts()
+        t = time.time()
+        start.record()
+        # the table for DEVICE_ITERS + 1 rounds, not for the drawn count
+        mc = next(b for b in InteractiveEngine.CLICK_BUCKETS
+                  if b >= (DEVICE_ITERS + 1) * max_label)
+        cs, n_clicks = orig_rollout(model, scene, labels, num_obj,
+                                    DEVICE_ITERS, gen, mc, max_label)
+        end.record()
+        end.synchronize()
+        seen.update(scene=scene, labels=labels, num_obj=num_obj, mc=mc,
+                    max_label=max_label, drawn_iters=num_iters,
+                    rollout=(start, end), rollout_wall_s=time.time() - t,
+                    rollout_launches=tuple(a - b for a, b in
+                                           zip(counts(), before)),
+                    clicks=cs, counts=n_clicks)
+        return cs, n_clicks
+
+    def make_train_step(cfg, model, optimizer):
+        inner = orig_make(cfg, model, optimizer)
+        seen.update(model=model, cfg=cfg)
+
+        def step(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = inner(*args)
+            end.record()
+            end.synchronize()
+            seen.update(step=(start, end), at_step=counts(),
+                        loss=float(out["loss"]), gnorm=float(out["gnorm"]),
+                        step_clicks=args[1].vox.shape[1])
+            return out
+        return step
+
+    args = pmain.get_args_parser().parse_args([
+        "--scan_folder", scans, "--train_list", one_batch,
+        "--val_list", one_batch, "--epochs", "1", "--val_epochs", "2",
+        "--batch_size", str(TRAIN_BATCH), "--seed", "0",
+        "--output_dir", out_dir, "--device", DEVICE, "--device_rollout"])
+    ptrain.train_rollout, pmain.make_train_step = rollout, make_train_step
+    t0 = time.time()
+    try:
+        banded_conv.launches = banded_conv_dw.launches = 0
+        banded_stem_conv.launches = boundary_distances_all.launches = 0
+        banded_window_conv.launches = smem_row_gather.launches = 0
+        pmain.main(args, log=lambda msg: print(f"main: {msg}", flush=True))
+        torch.cuda.synchronize()
+        launches = counts()
+        probe_launches = {"banded_window_conv": banded_window_conv.launches,
+                          "smem_row_gather": smem_row_gather.launches}
+    finally:
+        ptrain.train_rollout, pmain.make_train_step = orig_rollout, orig_make
+    wall_s = time.time() - t0
+    check("at_step" in seen, "no supervised step after the device rollout")
+    labels, num_obj = seen["labels"], seen["num_obj"]
+    n_clicks = seen["counts"].cpu().numpy()
+    vox = seen["clicks"].vox.cpu().numpy()
+    obj = seen["clicks"].obj.cpu().numpy()
+    lab = labels.cpu().numpy()
+    on_object = all((lab[i][vox[i, :c]] == obj[i, :c]).all()
+                    for i, c in enumerate(n_clicks))
+
+    # the same batch, scene and weights through both rollouts, order pinned
+    model, cfg, scene = seen["model"], seen["cfg"], seen["scene"]
+    engine = InteractiveEngine(cfg, model, DEVICE)
+    b = lab.shape[0]
+    n_valid = [int((lab[i] >= 0).sum()) for i in range(b)]
+    raw = [scene.raw[i, :n_valid[i]].cpu().numpy() for i in range(b)]
+    num_obj_np = num_obj.cpu().numpy()
+
+    class PinnedRng(random.Random):
+        def randint(self, a, b):
+            return DEVICE_ITERS
+
+        def shuffle(self, x):
+            pass
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.time()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), time.time() - t
+
+    host, host_ms, host_wall = timed(lambda: ptrain.rollout_clicks(
+        engine, scene, lab, num_obj_np, raw, n_valid, PinnedRng(0), cfg))
+    s_cap = seen["max_label"]
+    pinned = torch.arange(s_cap, dtype=torch.float32,
+                          device=DEVICE).expand(b, s_cap)
+    (cs, dev_counts), dev_ms, dev_wall = timed(
+        lambda: device_train.train_rollout(
+            model, scene, labels, num_obj, DEVICE_ITERS, None, seen["mc"],
+            s_cap, order=pinned))
+    dev_counts = dev_counts.cpu().numpy()
+    dvox, dobj = cs.vox.cpu().numpy(), cs.obj.cpu().numpy()
+    sets_equal = all(
+        int(dev_counts[i]) == host[i].count
+        and sorted(zip(dvox[i, :dev_counts[i]].tolist(),
+                       dobj[i, :dev_counts[i]].tolist()))
+        == sorted(zip(host[i].vox[:host[i].count].tolist(),
+                      host[i].obj[:host[i].count].tolist()))
+        for i in range(b))
+    pinned_on_object = all((lab[i][dvox[i, :c]] == dobj[i, :c]).all()
+                           for i, c in enumerate(dev_counts))
+
+    step_launches = seen["at_step"]
+    row = {"phase": "train_device_rollout", "rounds": DEVICE_ITERS + 1,
+           "drawn_iters": seen["drawn_iters"], "clicks": n_clicks.tolist(),
+           "step_clicks": seen["step_clicks"],
+           "launches": {"banded_conv": step_launches[0],
+                        "banded_conv_dw": step_launches[1],
+                        "banded_stem": step_launches[2],
+                        "boundary_distances_all": step_launches[3],
+                        **probe_launches},
+           "rollout_launches": seen["rollout_launches"],
+           "rollout_ms": seen["rollout"][0].elapsed_time(seen["rollout"][1]),
+           "rollout_wall_s": seen["rollout_wall_s"],
+           "step_ms": seen["step"][0].elapsed_time(seen["step"][1]),
+           "loss": seen["loss"], "gnorm": seen["gnorm"], "wall_s": wall_s,
+           "pinned": {"counts": dev_counts.tolist(), "sets_equal": sets_equal,
+                      "device_rollout_ms": dev_ms,
+                      "device_rollout_wall_s": dev_wall,
+                      "host_rollout_ms": host_ms,
+                      "host_rollout_wall_s": host_wall}}
+    emit(row)
+    check(step_launches == (24, 8, 0, DEVICE_ITERS + 1),
+          f"launches of the device-rollout step {step_launches} != "
+          f"(24, 8, 0, {DEVICE_ITERS + 1})")
+    check(seen["rollout_launches"] == (0, 0, 0, DEVICE_ITERS + 1),
+          f"rollout launches {seen['rollout_launches']}")
+    check(all(v == 0 for v in probe_launches.values()),
+          f"a probe kernel ran on the training path: {probe_launches}")
+    check(n_clicks.min() > 0 and on_object,
+          "device rollout: a sample without clicks or a click off its object")
+    check(sets_equal and pinned_on_object,
+          "device and host rollouts picked other click sets")
+    check(math.isfinite(seen["loss"]) and math.isfinite(seen["gnorm"]),
+          "non-finite loss or gnorm after the device rollout")
+    return dict(zip(("banded_conv", "banded_conv_dw", "banded_stem",
+                     "boundary_distances_all"), step_launches),
+                **probe_launches)
+
+
 def _summary(rows, roles):
     """Sums over the rows of ``roles``, each weighted by its count."""
     mine = [r for r in rows if r["role"] in roles]
     total = lambda key: sum(r[key] * r["count"] for r in mine)
     by_ops = sum(r["bound_ms"] * r["count"] for r in mine
                  if r["bound_by"] == "operations")
+    shape = lambda r: r.get("shape") or f"{r['rows']}x{r['cin']}->{r['cout']}"
     return {"max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": ("operations" if by_ops >= total("bound_ms") / 2
                          else "bytes"),
-            "library_ms": total("library_ms"),
-            "shapes": ", ".join(f"{r['count']}x {r['rows']}x{r['cin']}->"
-                                f"{r['cout']} ({r['role']})" for r in mine)}
+            # null where no single library call computes the function
+            "library_ms": (None if any(r["library_ms"] is None for r in mine)
+                           else total("library_ms")),
+            "shapes": ", ".join(f"{r['count']}x {shape(r)} ({r['role']})"
+                                for r in mine)}
 
 
 def main():
@@ -997,6 +1359,8 @@ def main():
         eval_dev = to_device(eval_batch.pyramid, DEVICE)
         shapes = phase_kernels(torch, kernel_cases(
             eval_dev, to_device(train_batch.pyramid, DEVICE)))
+        shapes += phase_distances(torch, distance_cases(eval_batch,
+                                                        train_batch))
         probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
                                                   eval_dev)
         del eval_batch, eval_dev, train_batch, train_ds
@@ -1005,14 +1369,17 @@ def main():
         phase_train_reference(torch, tmp)
         eval_launches = phase_main_path(torch, scans, val_list,
                                         os.path.join(tmp, "out"))
-        train_launches = phase_train_main_path(torch, train_scans, train_list,
-                                               tmp)
+        host_train = phase_train_main_path(torch, train_scans, train_list,
+                                           tmp)
+        device_train = phase_train_device_rollout(torch, train_scans,
+                                                  train_list, tmp)
 
-    # launches: each path's run (counts zeroed just before, read just
+    # launches: each path's runs (counts zeroed just before each, read just
     # after); the times: the training step's work for the k3 kernel and
     # dW, one eval backbone forward for the stem; for the window kernel the
     # eval backbone's eight k3 convs in banded_conv's place, for the row
-    # gather the TPU probe's shape
+    # gather the TPU probe's shape from both tables, for the boundary
+    # distance one eval round
     meta = {
         "banded_conv": ("agile3d_torch/csrc/banded_conv.cu",
                         tpu_kernel("banded_conv.py", "_make_kernel"),
@@ -1031,10 +1398,19 @@ def main():
         "smem_row_gather": (
             "agile3d_torch/csrc/row_gather.cu",
             tpu_kernel("probe_vmem_gather.py", "gather_kernel"),
-            ("probe shape",), "27 x 1024 rows of a 384 x 128 f32 table"),
+            ("probe shape",),
+            "27 x 1024 rows from a 384 x 128 and from a 4,096 x 128 f32 "
+            "table"),
+        "boundary_distances_all": (
+            "agile3d_torch/csrc/boundary_dist.cu",
+            tpu_kernel("device_eval.py", "_boundary_distances_all"),
+            ("eval round",),
+            "one eval round of the smoke scene (an XLA fusion's "
+            "counterpart, not a Pallas kernel's; no library call computes "
+            "it)"),
     }
     paths = {"probe": probe_launches, "eval": eval_launches,
-             "train": train_launches}
+             "train": host_train, "train_device_rollout": device_train}
     kernels = []
     for name, (source, replaces, roles, unit) in meta.items():
         mine = [r for r in shapes + probe_rows if r["kernel"] == name]
@@ -1057,6 +1433,14 @@ def main():
         if name == "banded_window_conv":
             entry["banded_conv_ms"] = sum(r["banded_conv_ms"] * r["count"]
                                           for r in mine)
+        if name == "smem_row_gather":
+            entry["by_table"] = {r["table_rows"]: {k: r[k] for k in (
+                "ms", "floor_ms", "store_ms",
+                "plain_ms", "library_ms", "bound_ms")} for r in mine}
+        if name == "boundary_distances_all":
+            tr = _summary(mine, ("train round",))
+            entry["per_train_round"] = {k: tr[k] for k in (
+                "ms", "plain_ms", "bound_ms", "shapes")}
         kernels.append(entry)
     emit({"total_s": time.time() - t_start})
     emit({"kernels": kernels})

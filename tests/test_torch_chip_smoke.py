@@ -63,6 +63,10 @@ def test_replaced_tpu_kernels_are_found():
         "tools/probe_banded_kernel.py:99"
     assert chip_smoke.tpu_kernel("probe_vmem_gather.py", "gather_kernel") == \
         "tools/probe_vmem_gather.py:32"
+    # the XLA fusion that the boundary-distance kernel stands in for
+    assert chip_smoke.tpu_kernel("device_eval.py",
+                                 "_boundary_distances_all") == \
+        "agile3d_tpu/engine/device_eval.py:37"
 
 
 @pytest.mark.parametrize("by", ["operations", "bytes"])
@@ -86,3 +90,48 @@ def test_summary_weights_shapes_by_their_launches(by):
     assert s["bound_ms"] == 1.25 and s["bound_by"] == by
     assert s["max_abs_err"] == 3e-6
     assert s["shapes"] == "3x 10x4->8 (dW), 1x 20x4->8 (dW)"
+
+
+def test_summary_without_a_library_call():
+    """A kernel that no single PyTorch call matches has a null library
+    time; a row may name its shape itself."""
+    rows = [dict(role="eval round", shape="1x196608", count=1,
+                 max_abs_err=0.0, ms=2.0, plain_ms=900.0, bound_ms=0.5,
+                 bound_by="operations", library_ms=None),
+            dict(role="ragged", shape="1x70001", count=0, max_abs_err=0.0,
+                 ms=1.0, plain_ms=9.0, bound_ms=0.1, bound_by="operations",
+                 library_ms=None)]
+    s = chip_smoke._summary(rows, ("eval round",))
+    assert s["library_ms"] is None and s["ms"] == 2.0
+    assert s["shapes"] == "1x 1x196608 (eval round)"
+
+
+def test_distance_cases_follow_the_batches(tmp_path):
+    """The distance kernel's main-path inputs: each sample's raw
+    coordinates in its rows, labelled objects as error clusters, pad rows
+    invalid; then the three edge cases."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import (
+        InterMultiObjDataset,
+        collate_scenes,
+    )
+    from agile3d_torch.data.synthetic import write_benchmark
+
+    cfg = Config()
+    scans, lst = write_benchmark(str(tmp_path), num_scenes=2, num_obj=3,
+                                 seed=1, n_points=1500)
+    ds = InterMultiObjDataset(scans, lst, cfg.model.voxel_size)
+    batch = collate_scenes([ds[0], ds[1]], cfg.buckets)
+    coords, cluster, valid = chip_smoke.rollout_inputs(batch)
+    nv = [int((batch.sample_idx[i] >= 0).sum()) for i in range(2)]
+    np.testing.assert_array_equal(coords[1, :nv[1]],
+                                  batch.raw[nv[0]:nv[0] + nv[1]])
+    assert (coords[0, nv[0]:] == 0).all() and not valid[0, nv[0]:].any()
+    assert set(np.unique(cluster)) <= {-1, 11, 22, 33}
+    cases = chip_smoke.distance_cases(batch, batch)
+    assert [c[0] for c in cases] == ["eval round", "train round", "ragged",
+                                     "all invalid", "one cluster"]
+    assert [c[1] for c in cases] == [1, 1, 0, 0, 0]
+    assert cases[2][2].shape == (1, 70001, 3) and not cases[3][4].any()
+    assert (cases[4][3] == 0).all()
+

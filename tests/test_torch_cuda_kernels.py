@@ -34,6 +34,10 @@ from agile3d_torch.ops.banded_window import (
     window_mask,
     window_plan,
 )
+from agile3d_torch.ops.boundary_dist import (
+    boundary_distances_all,
+    boundary_distances_all_reference,
+)
 from agile3d_torch.ops.row_gather import (
     row_gather_reference,
     smem_row_gather,
@@ -436,7 +440,8 @@ def test_banded_window_refuses_a_window_that_does_not_fit(card):
 
 
 @pytest.mark.parametrize("w,c,m", [(384, 128, 27 * 1024), (100, 4, 1000),
-                                   (1, 8, 5), (3000, 16, 70000)])
+                                   (1, 8, 5), (3000, 16, 70000),
+                                   (4096, 128, 27 * 1024), (7000, 128, 3000)])
 def test_smem_row_gather_equals_indexing(card, w, c, m):
     g = torch.Generator().manual_seed(w + m)
     x = torch.randn(w, c, generator=g).to(card)
@@ -448,13 +453,91 @@ def test_smem_row_gather_equals_indexing(card, w, c, m):
     assert torch.equal(out, row_gather_reference(x, idx))
 
 
+@pytest.mark.parametrize("w", [384, 4096])
+@pytest.mark.parametrize("m", [27 * 1024, 32, 1000, 33 * 1024 + 7, 300000])
+def test_smem_row_gather_over_grid_sizes(card, w, m):
+    """The TPU probe's tables over grids of one 16-CTA cluster up to as
+    many as the card holds (the row count sets the grid): a CTA that left
+    while a peer still read its slice would show here as wrong rows."""
+    g = torch.Generator().manual_seed(w * 7 + m)
+    x = torch.randn(w, 128, generator=g).to(card)
+    idx = torch.randint(0, w, (m,), generator=g, dtype=torch.int32).to(card)
+    ref = row_gather_reference(x, idx)
+    for _ in range(3):
+        out = smem_row_gather(x, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+def test_smem_row_gather_writes_zero_rows_for_bad_indices(card):
+    x = torch.randn(4096, 128, device=card) + 5.0
+    idx = torch.tensor([0, -1, 4096, 4095, 1 << 30], dtype=torch.int32,
+                       device=card)
+    out = smem_row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], x[0]) and torch.equal(out[3], x[4095])
+    assert float(out[[1, 2, 4]].abs().max()) == 0.0
+
+
 def test_smem_row_gather_refuses_bad_inputs(card):
     idx = torch.zeros(10, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError):
-        smem_row_gather(torch.zeros(4096, 128, device=card), idx)  # 2 MB
+    with pytest.raises(ValueError, match="3718912 bytes"):
+        smem_row_gather(torch.zeros(8192, 128, device=card), idx)  # 4 MB
+    with pytest.raises(ValueError):  # 454 rows a CTA: 232,448 bytes
+        smem_row_gather(torch.zeros(7249, 128, device=card), idx)
     with pytest.raises(ValueError):
         smem_row_gather(torch.zeros(10, 3, device=card), idx)
     with pytest.raises(TypeError):
         smem_row_gather(torch.zeros(10, 4, device=card), idx.long())
     with pytest.raises(ValueError):
         smem_row_gather(torch.zeros(10, 4, device=card), idx.cpu())
+    with pytest.raises(ValueError):
+        smem_row_gather(torch.zeros(10, 8, device=card)[:, :4], idx)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        smem_row_gather(torch.zeros(41, device=card)[1:].view(10, 4), idx)
+
+
+def _rollout_case(b, n, valid_frac, n_cl, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    coords = torch.rand(b, n, 3, generator=g) * 8
+    valid = torch.rand(b, n, generator=g) < valid_frac
+    cluster = torch.randint(-1, n_cl, (b, n), generator=g, dtype=torch.int32)
+    return coords.to(device), cluster.to(device), valid.to(device)
+
+
+@pytest.mark.parametrize("b,n,valid_frac,n_cl", [
+    (1, 196608, 0.92, 9),      # an eval round of the smoke scene
+    (5, 131072, 0.72, 11),     # a training round of the batch of five
+    (1, 70001, 0.9, 121),      # ragged: no tile, chunk or block fills
+    (2, 777, 0.5, 3), (3, 33, 1.0, 2), (1, 1, 1.0, 1),
+    (1, 4096, 0.0, 5),         # every row invalid: inf
+    (1, 50000, 1.0, 1),        # one cluster only: inf
+])
+def test_boundary_distances_equal_plain_bitwise(card, b, n, valid_frac, n_cl):
+    coords, cluster, valid = _rollout_case(b, n, valid_frac, n_cl, n + b,
+                                           card)
+    if n_cl == 1:
+        cluster.zero_()
+    before = boundary_distances_all.launches
+    d = boundary_distances_all(coords, cluster, valid)
+    torch.cuda.synchronize()
+    assert boundary_distances_all.launches == before + 1
+    ref = boundary_distances_all_reference(coords, cluster, valid)
+    assert torch.equal(d, ref), int((d != ref).sum())
+    if valid_frac == 0.0 or n_cl == 1:
+        assert torch.isinf(d).all()
+
+
+def test_boundary_distances_refuse_bad_inputs(card):
+    coords, cluster, valid = _rollout_case(1, 100, 0.9, 3, 0, card)
+    with pytest.raises(TypeError):
+        boundary_distances_all(coords.double(), cluster, valid)
+    with pytest.raises(TypeError):
+        boundary_distances_all(coords, cluster.long(), valid)
+    with pytest.raises(ValueError):
+        boundary_distances_all(coords, cluster, valid.cpu())
+    with pytest.raises(ValueError):
+        boundary_distances_all(coords[:, :50], cluster, valid[:, :50])
+    with pytest.raises(ValueError):  # every other row: not contiguous
+        boundary_distances_all(coords[:, ::2], cluster[:, ::2],
+                               valid[:, ::2])

@@ -31,8 +31,12 @@ from agile3d_torch.ops.banded_window import (
     window_work,
 )
 from agile3d_torch.ops.row_gather import (
+    CLUSTER,
+    SLICE_MAX,
+    TABLE_MAX,
     gather_work,
     row_gather_reference,
+    slice_bytes,
     smem_row_gather,
 )
 from agile3d_torch.sparse.kernel_maps import build_pyramid, kernel_offsets
@@ -215,6 +219,28 @@ def test_bound_helpers_count_work():
         0.0, 2.0 * (10 * 96 + 30 * 96) + 4.0 * 30)
 
 
+def test_row_gather_slice_sizes():
+    """Mirrors of csrc/row_gather.cu: each CTA of a 16-CTA cluster holds
+    ceil(W / 16) rows behind a 16-byte mbarrier in its 227 KB (the TPU
+    probe's 4,096-row table 128 KB each, the 384-row table 12 KB); the
+    wrapper refuses a table beyond the cluster's shared memory on the card
+    and names the limit, while the CPU takes the plain version."""
+    assert CLUSTER == 16
+    assert SLICE_MAX == 232448 - 16 and TABLE_MAX == 16 * SLICE_MAX == 3718912
+    assert slice_bytes(384, 128) == 24 * 512
+    assert slice_bytes(4096, 128) == 131072
+    assert slice_bytes(1, 4) == 16 and slice_bytes(17, 4) == 32
+    assert slice_bytes(7248, 128) == 231936 <= SLICE_MAX  # 453 rows a CTA
+    assert slice_bytes(7249, 128) == 232448 > SLICE_MAX   # 454 rows a CTA
+    assert slice_bytes(8192, 128) > SLICE_MAX
+    x = torch.zeros(8192, 128)
+    idx = torch.tensor([0, 8191], dtype=torch.int32)
+    assert torch.equal(smem_row_gather(x, idx), x[[0, 8191]])
+    # the bound: 2 MB of table, the indices and the 14 MB output once
+    _, nbytes = gather_work(4096, 128, 27648)
+    assert nbytes == 2097152 + 27648 * 512 + 110592
+
+
 def test_max_window_rows_fills_shared_memory():
     """One window slot holds a CTA's two windows of the longest length and
     a zero row, beside the weight ring (4 stages of bn x 128 bytes), 12
@@ -253,12 +279,13 @@ def test_probe_entry_points_run_on_cpu(capsys):
     assert banded["covers"] and banded["max_abs_err"] == 0.0
     assert banded["bound_ms"] > 0 and banded["device"].startswith("cpu")
     gather = probe_smem_gather.main(["--device", "cpu", "--points", "3000"])
-    assert gather["a_equal"]
-    assert set(gather) >= {"a_kernel", "a_plain", "a_library", "b", "c", "d"}
+    assert gather["a_equal"] and gather["a2_equal"]
+    assert set(gather) >= {"a_kernel", "a_plain", "a_library", "a2_kernel",
+                           "b", "c", "d"}
     out = capsys.readouterr().out
     assert "covers every present neighbour: True" in out
     assert "window kernel" in out and "banded_conv" in out
-    for tag in ("(a)", "(b)", "(c)", "(d)"):
+    for tag in ("(a)", "(a2)", "(b)", "(c)", "(d)"):
         assert f"{tag} " in out
     assert "M rows/s" in out and "H100 bound" in out
 
