@@ -1,13 +1,14 @@
 """Configuration of the model, the losses, training and the voxel-count
 padding buckets.
 
-Mirrors the JAX package's ``config.py`` for what the eval and training
-paths read. The
-TPU-only conv switches (scan_blocks, factored_conv, strip_conv,
-stem_zdilated), the chunked-attention thresholds and the bf16 dtype
-policies are not part of this package: convs are the plain gather-GEMM or
-the banded CUDA kernels, attention is dense, and everything outside the two
-kernels runs in float32.
+Mirrors the JAX package's ``config.py`` for what the eval, serving and
+training paths read: among them the decoder's attention policy (dense
+attention below a logits volume, the online-softmax chunked forms above
+it) and its dtype policy (``decoder_dtype``). The TPU-only conv switches
+(scan_blocks, factored_conv, strip_conv, stem_zdilated) and
+``backbone_dtype`` are not part of this package: convs are the plain
+gather-GEMM or the banded CUDA kernels, and the backbone runs in float32
+outside the kernels.
 """
 
 from __future__ import annotations
@@ -53,6 +54,18 @@ class ModelConfig:
     max_fg_objects: int = 10
     max_clicks: int = 256
     time_table_len: int = 256
+    # The decoder's attention policy (the JAX package's xla_attn_chunk and
+    # xla_attn_dense_threshold): dense attention while the [B, H, Q, N]
+    # logits volume is at most attn_dense_threshold elements, else the
+    # online-softmax forms over key / query chunks of the largest
+    # power-of-two divisor of N up to attn_chunk, down to 4096, that gives
+    # at least 6 chunks (models/agile3d.py::_pick_attn_chunk); 0 = dense.
+    attn_chunk: int = 32768
+    attn_dense_threshold: int = 10_000_000
+    # "bfloat16": decoder weights and the scene's mask features and
+    # positional encodings in bf16, promoted to f32 where the JAX package's
+    # are; the mask logits stay f32. The serving default (run_ui.py).
+    decoder_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)

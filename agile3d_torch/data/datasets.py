@@ -1,6 +1,7 @@
-"""Multi-object scenes and their collation into padded batches (the
-port's own copy of the multi-object half of the JAX package's
-``data/datasets.py``).
+"""Benchmark scenes and their collation into padded batches (the port's
+own copy of the JAX package's ``data/datasets.py``): the multi-object
+protocol's scenes and the single-object (InterObject3D) protocol's
+(scene, object) pairs with binarised labels.
 
   scene PLY -> min-shift -> (train) flips + z-rotations -> voxelize
   -> coordinate pyramid + kernel maps -> bucket padding.
@@ -30,7 +31,7 @@ class SceneSample(NamedTuple):
     inverse_map: np.ndarray   # int64 [N_full]
     click_idx: dict           # pre-recorded clicks (verification only)
     scene_name: str
-    num_obj: int
+    num_obj: int | str        # num objects (multi) / object id (single)
 
 
 class SceneBatch(NamedTuple):
@@ -43,7 +44,7 @@ class SceneBatch(NamedTuple):
     labels_full: list         # per-sample full-res labels
     inverse_map: list         # per-sample voxel row per point
     scene_names: list
-    obj_tags: list            # per-sample num_obj
+    obj_tags: list            # per-sample num_obj (multi) / object id (single)
 
 
 def augment_coords(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:
@@ -137,10 +138,55 @@ class InterMultiObjDataset:
             scene_name=scene_name, num_obj=int(num_obj))
 
 
+class InterSingleObjDataset:
+    """Single-object protocol: an npy list (or array) of (scene, object id)
+    rows. Labels are binarised to {0, 1}: the object against the rest of
+    the scan, or ``<scan_folder>/<scene>/<scene>_crop_<id>.ply`` whose
+    labels are already binary with ``crop``."""
+
+    def __init__(self, scan_folder, object_list, quantization_size,
+                 crop=False, augment=False, seed=0):
+        self.scan_folder = scan_folder
+        self.items = np.load(object_list) if isinstance(object_list, str) \
+            else np.asarray(object_list)
+        self.quantization_size = quantization_size
+        self.crop = crop
+        self.augment = augment
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i) -> SceneSample:
+        scene_name, object_id = self.items[i, 0], self.items[i, 1]
+        if self.crop:
+            path = os.path.join(self.scan_folder, scene_name,
+                                f"{scene_name}_crop_{object_id}.ply")
+            coords, colors, labels_full = _load_scan(path)
+        else:
+            path = os.path.join(self.scan_folder, scene_name + ".ply")
+            coords, colors, raw_labels = _load_scan(path)
+            labels_full = (raw_labels == int(object_id)).astype(np.int32)
+        if self.augment:
+            coords = augment_coords(coords, self.rng)
+
+        vox, unique_map, inverse_map = sparse_quantize(
+            coords, self.quantization_size)
+        return SceneSample(
+            vox_coords=vox, raw_coords=coords[unique_map],
+            feats=colors[unique_map],
+            labels=labels_full[unique_map].astype(np.int32),
+            labels_full=labels_full.astype(np.int32),
+            inverse_map=inverse_map, click_idx={},
+            scene_name=str(scene_name), num_obj=str(object_id))
+
+
 def collate_scenes(samples: list[SceneSample],
                    buckets=DEFAULT_VOXEL_BUCKETS) -> SceneBatch:
     """Concatenate samples into one flat padded pyramid plus per-sample
-    padded row maps."""
+    padded row maps. A sample whose ``num_obj`` is a ``str`` (the
+    single-object protocol's object id) counts the object ids in its
+    labels instead."""
     counts = [len(s.vox_coords) for s in samples]
     vox = np.vstack([s.vox_coords for s in samples])
     batch_ids = np.repeat(np.arange(len(samples), dtype=np.int32), counts)
@@ -163,9 +209,13 @@ def collate_scenes(samples: list[SceneSample],
         labels[i, :c] = s.labels
         offset += c
 
+    num_obj = np.array(
+        [s.num_obj if isinstance(s.num_obj, int)
+         else int((np.unique(s.labels) != 0).sum()) for s in samples],
+        np.int32)
     return SceneBatch(
         pyramid=pyr, feats=feats, raw=raw, sample_idx=sample_idx,
-        labels=labels, num_obj=np.array([s.num_obj for s in samples], np.int32),
+        labels=labels, num_obj=num_obj,
         labels_full=[s.labels_full for s in samples],
         inverse_map=[s.inverse_map for s in samples],
         scene_names=[s.scene_name for s in samples],
@@ -173,10 +223,14 @@ def collate_scenes(samples: list[SceneSample],
 
 
 def build_dataset(split: str, mode: str, *, scan_folder, scene_list,
-                  voxel_size=0.05, seed=0):
-    """The dataset of one split: ``train`` augments. Multi-object only
-    (the single-object protocol is not ported yet)."""
-    if mode != "multi_obj":
-        raise ValueError(f"dataset mode {mode} not supported")
-    return InterMultiObjDataset(scan_folder, scene_list, voxel_size,
-                                augment=split == "train", seed=seed)
+                  voxel_size=0.05, crop=False, seed=0):
+    """The dataset of one split and protocol (``multi_obj`` or
+    ``single_obj``); ``train`` augments."""
+    augment = split == "train"
+    if mode == "multi_obj":
+        return InterMultiObjDataset(scan_folder, scene_list, voxel_size,
+                                    augment=augment, seed=seed)
+    if mode == "single_obj":
+        return InterSingleObjDataset(scan_folder, scene_list, voxel_size,
+                                     crop=crop, augment=augment, seed=seed)
+    raise ValueError(f"dataset mode {mode} not supported")

@@ -3,8 +3,9 @@
 Reads the vertex element of ascii / binary_little_endian /
 binary_big_endian files, with arbitrary scalar properties, as a dict of
 property-name -> numpy array like the reference reader (the AGILE3D scans
-carry x, y, z, R, G, B, label); elements after the vertices (mesh faces)
-are not read. Writes binary little-endian vertex files."""
+carry x, y, z, R, G, B, label), and on request a mesh's faces: the element
+after the vertices when it is one list of vertex indices. Writes binary
+little-endian vertex files."""
 
 from __future__ import annotations
 
@@ -26,8 +27,26 @@ _INV_DTYPES = {
 }
 
 
-def read_ply(path: str) -> dict[str, np.ndarray]:
-    """Read the vertex properties of a PLY file as a dict name->array."""
+def _read_faces(f, count: int, prop, endian: str | None) -> np.ndarray:
+    """``count`` faces of one list property, read as [count, k] (every face
+    of a mesh has the same vertex count k)."""
+    _, _, cnt_type, idx_type = prop
+    rows = []
+    for _ in range(count):
+        if endian:
+            cnt_dt = np.dtype(endian + cnt_type)
+            idx_dt = np.dtype(endian + idx_type)
+            k = int(np.frombuffer(f.read(cnt_dt.itemsize), cnt_dt)[0])
+            rows.append(np.frombuffer(f.read(idx_dt.itemsize * k), idx_dt))
+        else:
+            vals = f.readline().split()
+            rows.append([int(v) for v in vals[1:1 + int(vals[0])]])
+    return np.asarray(rows, np.int64).reshape(count, -1)
+
+
+def read_ply(path: str, with_faces: bool = False):
+    """Read the vertex properties of a PLY file as a dict name->array;
+    ``with_faces`` returns (that dict, faces [F, k] or None)."""
     with open(path, "rb") as f:
         magic = f.readline().strip()
         if magic != b"ply":
@@ -73,7 +92,14 @@ def read_ply(path: str) -> dict[str, np.ndarray]:
             data = np.zeros(count, dt)
             for i, p in enumerate(props):
                 data[p[0]] = raw[:, i]
-    return {p[0]: np.ascontiguousarray(data[p[0]]) for p in props}
+        vertices = {p[0]: np.ascontiguousarray(data[p[0]]) for p in props}
+        if not with_faces:
+            return vertices
+        faces = None
+        if len(elements) > 1 and len(elements[1][2]) == 1 \
+                and elements[1][2][0][1] == "list":
+            faces = _read_faces(f, elements[1][1], elements[1][2][0], endian)
+    return vertices, faces
 
 
 def write_ply(path: str, fields: dict[str, np.ndarray]) -> None:

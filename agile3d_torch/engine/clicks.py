@@ -178,3 +178,19 @@ def mean_iou(pred: torch.Tensor, labels: torch.Tensor,
     ious, present = iou_per_object(pred, labels, valid, max_obj)
     return torch.where(present, ious, torch.zeros_like(ious)).sum() \
         / torch.clamp(present.sum(), min=1)
+
+
+def click_schedule(mode: str, num_obj: int, max_num_clicks: int):
+    """(budget, first): the last round's click count and the count after
+    round 0 (one click per object in the multi-object protocol, one in the
+    single-object one)."""
+    if mode == "multi":
+        return num_obj * max_num_clicks, num_obj
+    if mode == "single":
+        return max_num_clicks, 1
+    raise ValueError(f"eval mode {mode!r}: 'multi' or 'single'")
+
+
+def click_column(mode: str, current: int, num_obj: int):
+    """The CSV's clicks column: per object (multi), absolute (single)."""
+    return current / num_obj if mode == "multi" else current

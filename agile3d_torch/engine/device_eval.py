@@ -18,8 +18,10 @@ loop (attention over the same number of clicks, rounded alike).
 The loop runs exactly the budget's rounds and calls the decoder in every
 one, also after convergence; from the first round with nothing left to
 correct on, the rounds add no click and repeat that round's IoU, which is
-what the host loop writes without running the model. Multi-object mode
-only.
+what the host loop writes without running the model. Both protocols:
+``mode="multi"`` (round 0 clicks every object, ``max_num_clicks`` per
+object) and ``mode="single"`` (binarised labels, one click in round 0,
+``max_num_clicks`` in all, the absolute click count in the CSV).
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ import torch
 from agile3d_torch.data.datasets import SceneBatch
 from agile3d_torch.engine.clicks import (
     HostClicks,
+    click_column,
     click_override_device,
+    click_schedule,
     mean_iou,
     simulate_clicks,
 )
@@ -136,7 +140,8 @@ def rollout_rounds(model, scene, vox: torch.Tensor, obj: torch.Tensor,
 
 
 def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
-                          rng, max_num_clicks: int = 20) -> list[str]:
+                          rng, max_num_clicks: int = 20,
+                          mode: str = "multi") -> list[str]:
     """``engine/eval.py::evaluate_scene`` with rounds >= 1 on the device:
     the same CSV rows ``id scene obj clicks iou``."""
     if len(batch.scene_names) != 1:
@@ -157,7 +162,8 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
     clicks = HostClicks(cfg.model.max_clicks)
     pred0 = np.zeros(n_valid, np.int32)
     iou0 = engine.scene_iou(pred0, batch.inverse_map[0], batch.labels_full[0])
-    rows = [f"{instance_id} {scene_name} {tag} {0 / num_obj} {iou0}"]
+    rows = [f"{instance_id} {scene_name} {tag} "
+            f"{click_column(mode, 0, num_obj)} {iou0}"]
     new = simulate_clicks(pred0, labels_v, batch.raw[:n_valid],
                           num_obj=num_obj, training=False,
                           current_num_clicks=0, rng=rng, device=dev,
@@ -165,8 +171,8 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
     if new is not None:
         clicks.extend(new)
 
-    first = num_obj
-    rounds = num_obj * max_num_clicks - first + 1
+    budget, first = click_schedule(mode, num_obj, max_num_clicks)
+    rounds = budget - first + 1
     # round r's decoder sees the clicks of round 0 and one more per round
     # before it (until convergence, after which the IoU is held): the host
     # loop's bucket of that count; the table holds every click they add
@@ -185,5 +191,5 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
         max_label).cpu().tolist()
     for r, iou in enumerate(ious):
         rows.append(f"{instance_id} {scene_name} {tag} "
-                    f"{(first + r) / num_obj} {iou}")
+                    f"{click_column(mode, first + r, num_obj)} {iou}")
     return rows

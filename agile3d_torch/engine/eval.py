@@ -4,7 +4,10 @@
 Per scene: run the backbone once, then iterate click rounds -- decoder
 forward, clicked-voxel override, full-resolution IoU, click simulation --
 until the click budget is spent, writing one ``id scene obj clicks iou``
-CSV row per round. ``evaluate_dataset`` runs the rounds on the device by
+CSV row per round. ``mode="multi"`` budgets ``max_num_clicks`` per object
+and writes clicks per object; ``mode="single"`` (the InterObject3D
+protocol, binarised labels) budgets ``max_num_clicks`` in all, one click a
+round, and writes the absolute click count. ``evaluate_dataset`` runs the rounds on the device by
 default (``engine/device_eval.py``); ``evaluate_scene`` here is the host
 loop, whose model passes, IoU and boundary distances run on the engine's
 device while loop control and CSV writing stay on the host.
@@ -22,6 +25,8 @@ from agile3d_torch.data.datasets import SceneBatch, collate_scenes
 from agile3d_torch.engine.clicks import (
     HostClicks,
     apply_click_override,
+    click_column,
+    click_schedule,
     mean_iou,
     simulate_clicks,
 )
@@ -127,10 +132,11 @@ class InteractiveEngine:
 
 def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
                    instance_id: int, rng: random.Random,
-                   max_num_clicks: int = 20) -> list[str]:
-    """The multi-object click rollout of one scene (batch size 1). Returns
-    CSV rows ``id scene obj clicks iou``. Once no voxel is wrong, the
-    remaining rounds repeat the converged IoU without running the model."""
+                   max_num_clicks: int = 20, mode: str = "multi") -> list[str]:
+    """The click rollout of one scene (batch size 1) in the ``mode``
+    protocol. Returns CSV rows ``id scene obj clicks iou``. Once no voxel
+    is wrong, the remaining rounds repeat the converged IoU without running
+    the model."""
     if len(batch.scene_names) != 1:
         raise ValueError("eval runs one scene per batch")
     cfg = engine.cfg
@@ -144,7 +150,7 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
     scene_name = batch.scene_names[0].replace("scene", "")
 
     clicks = HostClicks(cfg.model.max_clicks)
-    budget = num_obj * max_num_clicks
+    budget, first = click_schedule(mode, num_obj, max_num_clicks)
     current = 0
     rows = []
     converged_iou = None
@@ -161,7 +167,8 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
                                    batch.labels_full[0])
         else:
             iou = converged_iou
-        rows.append(f"{instance_id} {scene_name} {tag} {current / num_obj} {iou}")
+        rows.append(f"{instance_id} {scene_name} {tag} "
+                    f"{click_column(mode, current, num_obj)} {iou}")
 
         if converged_iou is None:
             new = simulate_clicks(
@@ -173,24 +180,26 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
             else:
                 # nothing left to correct: every later round repeats this one
                 converged_iou = iou
-        current += num_obj if current == 0 else 1
+        current += first if current == 0 else 1
     return rows
 
 
 def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
                      max_num_clicks: int = 20, seed: int = 42,
-                     log=print, device_rollout: bool = True) -> str:
-    """Scenes in order, one CSV; the caller runs the evaluator on it. Logs
-    the final IoU of every tenth scene. ``device_rollout`` runs each
-    scene's rounds >= 1 on the device (``evaluate_scene_device``), else
-    the host loop (``evaluate_scene``); the rows are the same."""
+                     log=print, device_rollout: bool = True,
+                     mode: str = "multi") -> str:
+    """Scenes in order, one CSV, in the ``mode`` protocol; the caller runs
+    the evaluator on it. Logs the final IoU of every tenth scene.
+    ``device_rollout`` runs each scene's rounds >= 1 on the device
+    (``evaluate_scene_device``), else the host loop (``evaluate_scene``);
+    the rows are the same."""
     scene_fn = evaluate_scene_device if device_rollout else evaluate_scene
     rng = random.Random(seed)
     with open(results_file, "w") as f:
         for i in range(len(dataset)):
             batch = collate_scenes([dataset[i]], engine.cfg.buckets)
             rows = scene_fn(engine, batch, instance_id=i, rng=rng,
-                            max_num_clicks=max_num_clicks)
+                            max_num_clicks=max_num_clicks, mode=mode)
             f.write("\n".join(rows) + "\n")
             if i % 10 == 0:
                 log(f"[{i + 1}/{len(dataset)}] {batch.scene_names[0]} "

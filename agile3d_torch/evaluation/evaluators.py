@@ -1,20 +1,24 @@
-"""Offline NoC / IoU@k evaluator over per-click result CSVs (the port's own
-copy of ``EvaluatorMO`` from the JAX package's ``evaluation/evaluators.py``).
+"""Offline NoC / IoU@k evaluators over per-click result CSVs (the port's
+own copy of the JAX package's ``evaluation/evaluators.py``).
 
 Rows are ``id scene obj clicks iou`` (space separated; ``clicks`` is clicks
-per object).
+per object for multi-object, absolute clicks for single-object).
 
   * NoC@tau: per object, the first (file-order) click count whose IoU
     reaches tau; objects that never reach tau fall back to their first row
     with clicks >= 20. Mean over objects.
   * IoU@k: mean IoU over rows at exactly k clicks, keyed by the raw CSV
-    string ('1.0', '3.0', ...).
+    string ('1.0', '3.0', ... multi-object; '1', '2', ... single-object).
 """
 
 from __future__ import annotations
 
 import json
 from collections import defaultdict
+
+import numpy as np
+
+from agile3d_torch.evaluation.labels import DATASET_CLASSES
 
 
 def _parse_rows(result_file: str):
@@ -91,3 +95,51 @@ class EvaluatorMO:
                 acc.add(key, clicks_str, iou)
         return _results_dict(accs, ["1.0", "3.0", "5.0", "10.0", "15.0"],
                              self.thresholds)
+
+
+class EvaluatorSO:
+    """Single-object evaluator: the objects of the (scene, object id) list,
+    optionally without some semantic classes; ``eval_per_class`` gives the
+    same metrics per class of the dataset's vocabulary."""
+
+    def __init__(self, dataset, object_list, object_classes, result_file,
+                 iou_thresholds=(0.5, 0.65, 0.8, 0.85, 0.9)):
+        self.classes_vocab = DATASET_CLASSES[dataset]
+        self.objects = np.asarray(object_list)          # [M, 2] scene, obj
+        self.object_classes = np.asarray(object_classes)  # [M] class names
+        self.result_file = result_file
+        self.thresholds = list(iou_thresholds)
+
+    @classmethod
+    def from_files(cls, dataset, object_list_file, object_classes_file,
+                   result_file, iou_thresholds=(0.5, 0.65, 0.8, 0.85, 0.9)):
+        return cls(dataset, np.load(object_list_file),
+                   np.loadtxt(object_classes_file, dtype=str), result_file,
+                   iou_thresholds)
+
+    def _accumulate(self, objects) -> dict:
+        keep = {row[0].replace("scene", "") + "_" + row[1] for row in objects}
+        accs = {t: _CurveAccumulator(t) for t in self.thresholds}
+        for scene, obj, clicks_str, iou in _parse_rows(self.result_file):
+            key = scene + "_" + obj
+            if key in keep:
+                for acc in accs.values():
+                    acc.add(key, clicks_str, iou)
+        return accs
+
+    def eval_results(self, exclude_classes=()) -> dict:
+        mask = np.isin(self.object_classes, list(exclude_classes), invert=True)
+        return _results_dict(self._accumulate(self.objects[mask]),
+                             ["1", "2", "3", "5", "10", "15"], self.thresholds)
+
+    def eval_per_class(self) -> dict:
+        """{class: the eval_results dict over that class's objects}, for the
+        classes of the vocabulary that have an object in the results."""
+        out = {}
+        for cls_name in sorted(set(self.object_classes) & self.classes_vocab):
+            accs = self._accumulate(
+                self.objects[self.object_classes == cls_name])
+            if accs[self.thresholds[0]].noc:
+                out[cls_name] = _results_dict(
+                    accs, ["1", "2", "3", "5", "10", "15"], self.thresholds)
+        return out

@@ -8,6 +8,17 @@ the JAX package's ``models/agile3d.py``).
                        backward (torch.utils.checkpoint), as the JAX
                        package's jax.checkpoint(round_body) does
 
+The decoder runs the JAX package's two policies. Attention: dense while
+the [B, H, Q, N] logits volume is small, else chunked over the voxel axis
+(``_pick_attn_chunk``), with each key chunk's bias rebuilt from the
+compact (labels, present) round state so that the [B, Q, N] bias is never
+built. Dtype: ``decoder_dtype="bfloat16"`` runs on a bf16 copy of the
+decoder's weights, made once per model (and again only when the weights
+change), with the scene's ``mask_feat`` and ``pos_pcd`` in bf16 and
+``raw``, ``cmin`` and ``cmax`` in f32; every mixed op promotes as in JAX,
+the attention statistics are f32, each round's queries and voxel features
+go back to bf16 at its end, and the mask logits are f32.
+
 Clicks are a padded [B, MAX_CLICKS] (voxel, object, time) table and objects
 are padded to 1 + max_fg_objects mask columns. Query slots [0, nbg) are the
 learned background queries and the click queries follow in insertion order.
@@ -20,6 +31,7 @@ for key (utils/ckpt.py).
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -33,6 +45,7 @@ from agile3d_torch.ops.attention import (
     CrossAttentionLayer,
     FFNLayer,
     SelfAttentionLayer,
+    matmul,
 )
 from agile3d_torch.ops.norm import layer_norm
 from agile3d_torch.ops.pos_enc import fourier_pos, positional_encoding_1d, sine_pos
@@ -65,6 +78,45 @@ class _PosEnc(nn.Module):
 
 def _where0(mask, x):
     return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# the modules and buffers that forward_mask reads
+_DECODER_PARTS = ("bg_query_feat", "bg_query_pos", "mask_embed_head",
+                  "decoder_norm", "pos_enc", "c2s_attention", "c2c_attention",
+                  "ffn_attention", "s2c_attention")
+
+
+def _pick_attn_chunk(n: int, logits_volume: int, cfg: ModelConfig) -> int:
+    """Chunk of the voxel axis for the chunked attention, 0 = dense: the
+    largest power-of-two divisor of ``n`` from ``cfg.attn_chunk`` down to
+    4096 that gives at least 6 chunks, once the logits volume exceeds
+    ``cfg.attn_dense_threshold`` (the JAX package's rule and thresholds)."""
+    if not cfg.attn_chunk or logits_volume <= cfg.attn_dense_threshold:
+        return 0
+    c = cfg.attn_chunk
+    while c >= 4096:
+        if n % c == 0 and n // c >= 6:
+            return c
+        c //= 2
+    return 0
+
+
+def _round_bias_chunk(labels, present, safe_obj, vox_valid):
+    """bias_fn(start, size) for the key-chunked attention: the [B, Q, size]
+    slice of ``Agile3D._round_bias_dense``, rebuilt from the compact
+    (labels, present) state."""
+    sel_present = torch.gather(present, 1, safe_obj)[:, :, None]   # [B, Q, 1]
+    zero = torch.zeros((), device=labels.device)
+    neg = torch.full((), NEG_INF, device=labels.device)
+
+    def bias_fn(start: int, size: int):
+        lab = labels[:, start:start + size]
+        mismatch = lab[:, None, :] != safe_obj[:, :, None]           # [B, Q, s]
+        bias = torch.where(sel_present & mismatch, neg, zero)
+        pad = torch.where(vox_valid[:, start:start + size], zero, neg)
+        return bias + pad[:, None, :]
+
+    return bias_fn
 
 
 class Agile3D(nn.Module):
@@ -109,10 +161,10 @@ class Agile3D(nn.Module):
     # Phase 1: backbone, once per scene
     # ------------------------------------------------------------------
 
-    def _pos(self, xyz, cmin, cmax):
+    def _pos(self, xyz, cmin, cmax, gauss_b):
         cfg = self.cfg
         if cfg.positional_encoding_type == "fourier":
-            return fourier_pos(xyz, self.pos_enc.gauss_B, cmin, cmax,
+            return fourier_pos(xyz, gauss_b, cmin, cmax,
                                normalize=cfg.normalize_pos_enc)
         if cfg.positional_encoding_type == "sine":
             return sine_pos(xyz, cfg.hidden_dim, cmin, cmax,
@@ -136,8 +188,13 @@ class Agile3D(nn.Module):
         big = torch.tensor(3.4e38, dtype=raw_b.dtype, device=raw_b.device)
         cmin = torch.where(vox_valid[..., None], raw_b, big).amin(dim=1)
         cmax = torch.where(vox_valid[..., None], raw_b, -big).amax(dim=1)
-        pos_pcd = self._pos(raw_b, cmin[:, None, :], cmax[:, None, :])
+        pos_pcd = self._pos(raw_b, cmin[:, None, :], cmax[:, None, :],
+                            self.pos_enc.gauss_B)
         pos_pcd = _where0(vox_valid[..., None], pos_pcd)
+        if self.cfg.decoder_dtype == "bfloat16":
+            # once per scene: every click round reads these two
+            mask_feat = mask_feat.to(torch.bfloat16)
+            pos_pcd = pos_pcd.to(torch.bfloat16)
         return SceneFeatures(mask_feat=mask_feat, pos_pcd=pos_pcd,
                              vox_valid=vox_valid, raw=raw_b, cmin=cmin,
                              cmax=cmax)
@@ -146,17 +203,20 @@ class Agile3D(nn.Module):
     # Phase 2: decoder, once per click round
     # ------------------------------------------------------------------
 
-    def _mask_module(self, queries, src, query_obj, query_valid, col_valid,
+    @staticmethod
+    def _mask_module(w, queries, src, query_obj, query_valid, col_valid,
                      vox_valid):
-        """Mask head: LayerNorm -> MLP -> voxel-query dot products ->
-        per-object max over that object's click queries. Returns (out
-        [B, N, 1+K] with invalid columns at NEG_INF, labels [B, N] argmax
-        (-1 on pad rows), present [B, 1+K]): (labels, present) is the compact
-        state from which the next round's attention bias is rebuilt."""
-        l1, l2 = self.mask_embed_head[0], self.mask_embed_head[2]
-        qn = layer_norm(queries, self.decoder_norm.weight, self.decoder_norm.bias)
-        emb = torch.relu(qn @ l1.weight.T + l1.bias)
-        emb = emb @ l2.weight.T + l2.bias                          # [B, Q, C]
+        """Mask head with the decoder weights ``w``: LayerNorm -> MLP ->
+        voxel-query dot products -> per-object max over that object's click
+        queries. Returns (out [B, N, 1+K] with invalid columns at NEG_INF,
+        labels [B, N] argmax (-1 on pad rows), present [B, 1+K]): (labels,
+        present) is the compact state from which the next round's attention
+        bias is rebuilt. The logits are f32 (their operands are f32 under
+        both dtype policies, as in JAX)."""
+        l1, l2 = w.mask_embed_head[0], w.mask_embed_head[2]
+        qn = layer_norm(queries, w.decoder_norm.weight, w.decoder_norm.bias)
+        emb = torch.relu(matmul(qn, l1.weight.T) + l1.bias)
+        emb = matmul(emb, l2.weight.T) + l2.bias                   # [B, Q, C]
         logits = torch.einsum("bnc,bqc->bnq", src, emb)            # [B, N, Q]
         neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
         cols = []
@@ -183,12 +243,46 @@ class Agile3D(nn.Module):
         bias = torch.where(sel_present[:, :, None] & mismatch, neg, zero)
         return bias + torch.where(vox_valid, zero, neg)[:, None, :]
 
+    def _decoder_weights(self):
+        """The module whose decoder weights ``forward_mask`` reads: the
+        model itself in f32; under ``decoder_dtype="bfloat16"`` a bf16 copy
+        of its decoder parts, made again only when a weight changed (its
+        storage or its in-place version), kept out of the state dict."""
+        if self.cfg.decoder_dtype == "float32":
+            return self
+        if self.cfg.decoder_dtype != "bfloat16":
+            raise ValueError(f"decoder_dtype {self.cfg.decoder_dtype!r}")
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the bf16 decoder runs without gradients only (its weights "
+                "are a copy); train with decoder_dtype='float32'")
+        src = [t for name in _DECODER_PARTS
+               for part in (getattr(self, name),)
+               for t in (*part.parameters(), *part.buffers())]
+        src.append(self.time_pe)
+        key = tuple((t.data_ptr(), t._version) for t in src)
+        cached = self.__dict__.get("_bf16_decoder")
+        if cached is None or cached[0] != key:
+            # ordinary tensors even when called under inference_mode
+            with torch.inference_mode(False), torch.no_grad():
+                twin = nn.Module()
+                for name in _DECODER_PARTS:
+                    setattr(twin, name, copy.deepcopy(getattr(self, name)))
+                twin.register_buffer("time_pe", self.time_pe.clone())
+                twin.to(torch.bfloat16)
+            self.__dict__["_bf16_decoder"] = (key, twin)
+        return self.__dict__["_bf16_decoder"][1]
+
     def forward_mask(self, scene: SceneFeatures, clicks: ClickState,
                      num_obj: torch.Tensor) -> dict:
         """All refinement rounds for the current click table. Returns
         pred_masks [B, N, 1 + max_fg_objects] (last round) and aux_masks
-        [R-1, B, N, 1 + max_fg_objects] (earlier rounds)."""
+        [R-1, B, N, 1 + max_fg_objects] (earlier rounds), in f32."""
         cfg = self.cfg
+        w = self._decoder_weights()
+        if w is not self:
+            scene = scene._replace(mask_feat=scene.mask_feat.to(torch.bfloat16),
+                                   pos_pcd=scene.pos_pcd.to(torch.bfloat16))
         b, n, c = scene.mask_feat.shape
         nbq = cfg.num_bg_queries
         dev = scene.mask_feat.device
@@ -199,14 +293,15 @@ class Agile3D(nn.Module):
                              safe_vox[..., None].expand(-1, -1, c))
         cfeat = _where0(click_valid[..., None], cfeat)
         cxyz = torch.gather(scene.raw, 1, safe_vox[..., None].expand(-1, -1, 3))
-        cpos = self._pos(cxyz, scene.cmin[:, None, :], scene.cmax[:, None, :])
-        t_safe = clicks.time.clamp(0, self.time_pe.shape[0] - 1).long()
-        cpos = cpos + self.time_pe[t_safe]
+        cpos = self._pos(cxyz, scene.cmin[:, None, :], scene.cmax[:, None, :],
+                         w.pos_enc.gauss_B)
+        t_safe = clicks.time.clamp(0, w.time_pe.shape[0] - 1).long()
+        cpos = cpos + w.time_pe[t_safe]
         cpos = _where0(click_valid[..., None], cpos)
 
-        queries = torch.cat([self.bg_query_feat.weight[None].expand(b, -1, -1),
+        queries = torch.cat([w.bg_query_feat.weight[None].expand(b, -1, -1),
                              cfeat], dim=1)                         # [B, Q, C]
-        query_pos = torch.cat([self.bg_query_pos.weight[None].expand(b, -1, -1),
+        query_pos = torch.cat([w.bg_query_pos.weight[None].expand(b, -1, -1),
                                cpos], dim=1)
         query_obj = torch.cat([torch.zeros((b, nbq), dtype=torch.long, device=dev),
                                clicks.obj.long()], dim=1)
@@ -220,6 +315,9 @@ class Agile3D(nn.Module):
         col_valid = (torch.arange(n_cols, device=dev)[None, :]
                      <= num_obj.to(dev)[:, None])
         safe_obj = query_obj.clamp(0, n_cols - 1)
+        chunk = _pick_attn_chunk(n, b * queries.shape[1] * n * cfg.num_heads,
+                                 cfg)
+        cdt = scene.mask_feat.dtype
 
         src = scene.mask_feat
         # no object present yet -> fully open rows (the reference's zero
@@ -229,21 +327,29 @@ class Agile3D(nn.Module):
         n_slots = len(cfg.hlevels)
 
         def round_body(d, i, queries, src, labels, present):
-            c2s_bias = self._round_bias_dense(labels, present, safe_obj,
-                                              scene.vox_valid)
-            queries = self.c2s_attention[d][i](
+            if chunk:
+                c2s_bias, c2s_bias_fn = None, _round_bias_chunk(
+                    labels, present, safe_obj, scene.vox_valid)
+            else:
+                c2s_bias, c2s_bias_fn = self._round_bias_dense(
+                    labels, present, safe_obj, scene.vox_valid), None
+            queries = w.c2s_attention[d][i](
                 queries, src, pos=scene.pos_pcd, query_pos=query_pos,
-                attn_bias=c2s_bias)
-            queries = self.c2c_attention[d][i](
+                attn_bias=c2s_bias, attn_bias_fn=c2s_bias_fn,
+                chunk_keys=chunk)
+            queries = w.c2c_attention[d][i](
                 queries, query_pos=query_pos, attn_bias=q_key_bias)
-            queries = self.ffn_attention[d][i](queries)
-            src = self.s2c_attention[d][i](
+            queries = w.ffn_attention[d][i](queries)
+            src = w.s2c_attention[d][i](
                 src, queries, pos=query_pos, query_pos=scene.pos_pcd,
-                attn_bias=q_key_bias)
+                attn_bias=q_key_bias, chunk_queries=chunk)
             masks, labels, present = self._mask_module(
-                queries, src, query_obj, query_valid, col_valid,
+                w, queries, src, query_obj, query_valid, col_valid,
                 scene.vox_valid)
-            return queries, src, labels, present, masks
+            # the f32 positional and bias terms promote the round's outputs:
+            # back to the decoder's dtype, as JAX pins its carry (a no-op
+            # in f32)
+            return queries.to(cdt), src.to(cdt), labels, present, masks
 
         # with gradients, each round's [B, H, Q, N] attention intermediates
         # are recomputed in the backward instead of kept for all rounds
@@ -262,6 +368,7 @@ class Agile3D(nn.Module):
             "pred_masks": all_masks[-1],
             "aux_masks": all_masks[:-1] if len(preds) > 1 else None,
             "all_masks": all_masks,
+            "attn_chunk": chunk,
         }
 
 

@@ -20,7 +20,9 @@ def fourier_pos(xyz, gauss_b, src_min=None, src_max=None, *, normalize=True):
     """xyz [..., 3]; gauss_b [3, d_pos//2] -> [..., d_pos] = [sin | cos]."""
     if normalize:
         xyz = shift_scale_points(xyz, src_min, src_max)
-    proj = (xyz * (2 * np.pi)) @ gauss_b
+    xyz = xyz * (2 * np.pi)
+    dt = torch.promote_types(xyz.dtype, gauss_b.dtype)  # jnp.matmul's dtype
+    proj = xyz.to(dt) @ gauss_b.to(dt)
     return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
 
 

@@ -28,16 +28,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 against ``x[idx]``, timed; then both probe entry points
                 (``agile3d_torch.tools``, in process), with the two kernels'
                 launches counted around them;
-  4. reference -- the full-width model on a mid-size scene on the card
+  4. decoder -- ``forward_mask`` on the smoke scene at full width, dense
+                and chunked (JAX's rule picks 32,768: 6 chunks), in f32 and
+                bf16: CUDA-event and host-clock times, peak memory; chunked
+                against dense at f32, bf16 against f32 by labels; then one
+                chunked forward per dtype at a KITTI-360-size shape (786,432
+                rows, 256 clicks) and its peak memory;
+  5. reference -- the full-width model on a mid-size scene on the card
                 (kernels on, then off) against the same model on the CPU,
                 the plain float32 path that the CPU tests hold against the
-                JAX package;
-  5. train reference -- one supervised step at full width on two such
+                JAX package; and the bf16 decoder on the card against the
+                CPU's on the same scene features;
+  6. train reference -- one supervised step at full width on two such
                 scenes: the CPU (plain f32), the card with the kernels off
                 and the card with them on; losses, every gradient, gnorm
                 and the committed BatchNorm statistics compared, launches
                 counted;
-  6. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
+  7. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
                 the synthetic smoke scene (400,000 points, 8 objects) at full
                 Res16UNet34C width with seeded random weights, 5 clicks per
                 object (the click table crosses a bucket): the default
@@ -46,7 +53,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 launch per device round; the probes' kernels: 0); the CSV
                 rows of the two must agree, and the decoder must see the
                 same click bucket in each round of both;
-  7. train main path -- ``python -m agile3d_torch.main`` (in process): 10
+  8. single -- ``python -m agile3d_torch.eval_single_obj`` (in process) on
+                the smoke scene's first 3 objects at the default 20 clicks:
+                the device rollout, then ``--host_rollout``; rows equal, 8 k3
+                and 1 stem launches per object, one distance launch per
+                device round, the evaluator finite, then
+                ``python -m agile3d_torch.compute_ap`` on the CSV;
+  9. serve -- the annotation server (``agile3d_torch.interactive``) on the
+                smoke scene at bf16 (the serving default) and f32: the scene
+                load (8 k3, 1 stem), a scripted 20-click session (per-click
+                wall and decoder times, p50 / p90 beside the 50 ms limit,
+                which is reported and not enforced; no kernel launch per
+                click) and one ``POST /click`` through the HTTP front end
+                on localhost;
+  10. train main path -- ``python -m agile3d_torch.main`` (in process): 10
                 synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
                 level-0 bucket), one epoch of 2 steps and one validation at
                 full width, launches counted per step (24 k3, 8 dW, 0
@@ -64,9 +84,11 @@ package beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import glob
+import io
 import json
 import math
 import os
@@ -75,7 +97,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+import urllib.request
 
 import numpy as np
 
@@ -104,6 +129,18 @@ TRAIN_REF_SCENES = dict(num_scenes=2, num_obj=4, n_points=36000, extent=4.0,
                         seed=1)
 # the training step with --device_rollout: its rounds (0..DEVICE_ITERS)
 DEVICE_ITERS = 5
+# the single-object phase: the smoke scene's first objects, each one
+# instance of the InterObject3D protocol at its default 20-click budget
+SINGLE_OBJECTS = 3
+# the serving phase: a scripted annotation session of this many clicks on
+# the smoke scene, and PERF.md's per-click limit (reported, not enforced)
+SERVE_CLICKS = 20
+SERVE_LIMIT_MS = 50.0
+# a KITTI-360-size scene for the chunked decoder's memory: the 786,432-row
+# bucket (~670,000 voxels) and a 256-click table
+KITTI_ROWS = 786432
+KITTI_VALID = 670000
+KITTI_CLICKS = 256
 DEVICE = "cuda"
 
 
@@ -132,6 +169,94 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     from agile3d_torch.tools import time_ms as timed
 
     return timed(fn, torch.device(DEVICE), reps=reps, warmup=warmup)
+
+
+def wall_ms(torch, fn, reps: int = 10) -> float:
+    """Median host-clock time of ``fn`` through a synchronize: what a
+    caller waits, launches included."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches
+    in ``.launches``."""
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.boundary_dist import boundary_distances_all
+    from agile3d_torch.ops.row_gather import smem_row_gather
+
+    return {"banded_conv": banded_conv, "banded_conv_dw": banded_conv_dw,
+            "banded_stem": banded_stem_conv,
+            "banded_window_conv": banded_window_conv,
+            "smem_row_gather": smem_row_gather,
+            "boundary_distances_all": boundary_distances_all}
+
+
+def zero_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+@contextlib.contextmanager
+def chunks_seen():
+    """The attention chunk of every ``forward_mask`` call inside the block
+    (0 = dense), counted by value."""
+    from agile3d_torch.models.agile3d import Agile3D
+
+    seen = {}
+    orig = Agile3D.forward_mask
+
+    def forward_mask(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        seen[out["attn_chunk"]] = seen.get(out["attn_chunk"], 0) + 1
+        return out
+
+    Agile3D.forward_mask = forward_mask
+    try:
+        yield seen
+    finally:
+        Agile3D.forward_mask = orig
+
+
+@contextlib.contextmanager
+def timed_calls(torch, owner, name: str, store: list):
+    """``owner.name`` wrapped in CUDA events for the block: each call
+    appends its (start, end) pair to ``store``."""
+    orig = getattr(owner, name)
+    own = name in vars(owner)
+
+    def wrapper(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        store.append((start, end))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield store
+    finally:
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
 
 
 def nvidia_smi() -> str:
@@ -594,13 +719,40 @@ def phase_reference(torch, tmp):
     labels = ref.argmax(-1)
     agree_plain = float((got_plain.argmax(-1) == labels).float().mean())
     agree_kern = float((got_kern.argmax(-1) == labels).float().mean())
+
+    # the bf16 decoder policy on the card against the same on the CPU, both
+    # fed the CPU's f32 scene features (the CPU tests hold the CPU's bf16
+    # decoder against JAX's)
+    with torch.no_grad():
+        scene = model.forward_backbone(
+            to_device(batch.pyramid, "cpu"),
+            *(torch.from_numpy(a) for a in (batch.feats, batch.raw,
+                                            batch.sample_idx)))
+        model.cfg = gpu.cfg = dataclasses.replace(model.cfg,
+                                                  decoder_dtype="bfloat16")
+        no = torch.tensor([num_obj], dtype=torch.int32)
+        out = model.forward_mask(scene, clicks, no)
+        want16 = out["pred_masks"][0, :n_valid, :num_obj + 1].float()
+        got16 = gpu.forward_mask(
+            type(scene)(*(t.to(DEVICE) for t in scene)),
+            type(clicks)(*(t.to(DEVICE) for t in clicks)), no.to(DEVICE))[
+            "pred_masks"][0, :n_valid, :num_obj + 1].float().cpu()
+    scale16 = float(want16.abs().max()) + 1.0
+    err16 = float((got16 - want16).abs().max())
+    agree16 = float((got16.argmax(-1) == want16.argmax(-1)).float().mean())
     row = {"phase": "reference", "rows": batch.pyramid.levels[0].grid.shape[0],
            "num_valid": n_valid, "launches_k3": launches[0],
            "launches_stem": launches[1], "logit_scale": scale,
            "plain_max_abs_err": err_plain, "plain_label_agree": agree_plain,
            "kernel_max_abs_err": err_kern, "kernel_label_agree": agree_kern,
+           "attn_chunk": out["attn_chunk"],
+           "bf16_decoder_max_abs_err": err16, "bf16_logit_scale": scale16,
+           "bf16_decoder_label_agree": agree16,
            "seconds": time.time() - t0}
     emit(row)
+    check(err16 <= 2e-2 * scale16 and agree16 >= 0.99,
+          f"bf16 decoder, card vs CPU: {err16} (scale {scale16}), labels "
+          f"agree {agree16}")
     # level 0 of this scene is a 49,152-row bucket: the stem and the four k3
     # convs of block8 take the kernels, level 1 is below the threshold
     check(launches == (4, 1), f"reference run launches {launches} != (4, 1)")
@@ -610,6 +762,138 @@ def phase_reference(torch, tmp):
     # the kernels round their operands to bf16 (8-bit mantissa)
     check(err_kern <= 5e-2 * scale, f"card kernels vs CPU f32: {err_kern}")
     check(agree_kern >= 0.99, f"card kernel labels agree {agree_kern}")
+
+
+def phase_decoder(torch, batch):
+    """``forward_mask`` on the smoke scene at full width, dense and chunked
+    (the chunk as JAX's rule picks it), in f32 and bf16: CUDA-event time
+    (median of 10, behind the spin kernel), host-clock time through a
+    synchronize, and peak memory, in one call; chunked against dense at f32
+    within 1e-4 x (max + 1), bf16 against f32 by argmax agreement. Then one
+    chunked forward per dtype at a KITTI-360-size shape, scene features
+    made from seeded tensors (no backbone), with its peak memory."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.models.agile3d import ClickState, SceneFeatures
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.sparse.grid import to_device
+
+    t0 = time.time()
+    cfg = Config().model
+    model = init_agile3d(cfg, seed=0, device=DEVICE)
+    with torch.no_grad():
+        scene = model.forward_backbone(
+            to_device(batch.pyramid, DEVICE),
+            *(torch.from_numpy(a).to(DEVICE)
+              for a in (batch.feats, batch.raw, batch.sample_idx)))
+    n_valid = int((batch.sample_idx[0] >= 0).sum())
+    num_obj = int(batch.num_obj[0])
+    clicks = ClickState(*(t.to(DEVICE) for t in _clicks(
+        torch, batch.labels[0, :n_valid], num_obj)))
+    no = torch.tensor([num_obj], dtype=torch.int32, device=DEVICE)
+    # the bf16 policy casts the scene once, in forward_backbone
+    scenes = {"float32": scene,
+              "bfloat16": scene._replace(
+                  mask_feat=scene.mask_feat.to(torch.bfloat16),
+                  pos_pcd=scene.pos_pcd.to(torch.bfloat16))}
+
+    def measure(sc, c, n):
+        run = lambda: model.forward_mask(sc, c, n)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = time_ms(torch, run)
+            wall = wall_ms(torch, run)
+        return out, dict(chunk=out["attn_chunk"], ms=ms, wall_ms=wall,
+                         peak_gib=peak / 2 ** 30,
+                         peak_above_inputs_gib=(peak - base) / 2 ** 30)
+
+    forms, masks = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for form, threshold in (("dense", 2 ** 62),
+                                ("chunked", cfg.attn_dense_threshold)):
+            model.cfg = dataclasses.replace(cfg, decoder_dtype=dtype,
+                                            attn_dense_threshold=threshold)
+            out, row = measure(scenes[dtype], clicks, no)
+            masks[form, dtype] = out["pred_masks"][0, :n_valid,
+                                                   :num_obj + 1].float()
+            forms[f"{form}_{dtype}"] = row
+            del out
+    dense, chunked = masks["dense", "float32"], masks["chunked", "float32"]
+    scale = float(dense.abs().max()) + 1.0
+    chunk_err = float((chunked - dense).abs().max())
+    labels = chunked.argmax(-1)
+    agree = {form: float((masks[form, "bfloat16"].argmax(-1)
+                          == masks[form, "float32"].argmax(-1))
+                         .float().mean()) for form in ("dense", "chunked")}
+    out_dtypes = {str(m.dtype) for m in masks.values()}
+    del masks, dense, chunked, labels, scenes, scene
+    torch.cuda.empty_cache()
+
+    # KITTI-360 size: ~670,000 valid rows of the 786,432-row bucket, 256
+    # clicks over 8 objects; seeded features in the scene's value ranges
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    n, c = KITTI_ROWS, cfg.hidden_dim
+    valid = torch.zeros((1, n), dtype=torch.bool, device=DEVICE)
+    valid[0, :KITTI_VALID] = True
+    raw = torch.rand((1, n, 3), generator=g, device=DEVICE) * 60.0
+    raw = torch.where(valid[..., None], raw, 0.0)
+    big = SceneFeatures(
+        mask_feat=torch.where(valid[..., None], torch.randn(
+            (1, n, c), generator=g, device=DEVICE), 0.0),
+        pos_pcd=torch.where(valid[..., None], torch.rand(
+            (1, n, c), generator=g, device=DEVICE) * 2 - 1, 0.0),
+        vox_valid=valid, raw=raw, cmin=raw[0, :KITTI_VALID].amin(0)[None],
+        cmax=raw[0, :KITTI_VALID].amax(0)[None])
+    rows = torch.randperm(KITTI_VALID, generator=g, device=DEVICE)
+    big_clicks = ClickState(
+        rows[:KITTI_CLICKS].to(torch.int32)[None],
+        (torch.arange(KITTI_CLICKS, device=DEVICE, dtype=torch.int32)
+         % 9)[None],
+        torch.arange(KITTI_CLICKS, device=DEVICE, dtype=torch.int32)[None])
+    eight = torch.tensor([8], dtype=torch.int32, device=DEVICE)
+    kitti = {}
+    for dtype in ("float32", "bfloat16"):
+        model.cfg = dataclasses.replace(cfg, decoder_dtype=dtype)
+        sc = big if dtype == "float32" else big._replace(
+            mask_feat=big.mask_feat.to(torch.bfloat16),
+            pos_pcd=big.pos_pcd.to(torch.bfloat16))
+        out, row = measure(sc, big_clicks, eight)
+        row["finite"] = bool(torch.isfinite(
+            out["pred_masks"][0, :KITTI_VALID, :9]).all())
+        kitti[dtype] = row
+        del out, sc
+    q = cfg.num_bg_queries + KITTI_CLICKS
+    dense_logits_gib = cfg.num_heads * q * n * 4 / 2 ** 30
+    del big, big_clicks, rows, raw, valid, model
+    torch.cuda.empty_cache()
+
+    emit({"phase": "decoder", "rows": batch.sample_idx.shape[1],
+          "num_valid": n_valid, "queries": cfg.num_bg_queries
+          + clicks.vox.shape[1], "forms": forms,
+          "chunked_vs_dense_f32_max_abs_err": chunk_err, "logit_scale": scale,
+          "bf16_vs_f32_label_agree": agree, "mask_dtypes": sorted(out_dtypes),
+          "kitti": {"rows": n, "num_valid": KITTI_VALID, "queries": q,
+                    "dense_logits_gib_per_tensor": dense_logits_gib,
+                    **kitti},
+          "seconds": time.time() - t0})
+    check(all(forms[f"dense_{d}"]["chunk"] == 0 for d in ("float32",
+                                                          "bfloat16")),
+          f"the dense forms chunked: {forms}")
+    check(all(forms[f"chunked_{d}"]["chunk"] == 32768
+              for d in ("float32", "bfloat16")),
+          f"the smoke scene's chunk is not 32768 (6 steps): {forms}")
+    check(chunk_err <= 1e-4 * scale,
+          f"chunked vs dense decoder, f32: {chunk_err} > 1e-4 x {scale}")
+    check(out_dtypes == {"torch.float32"}, f"mask dtypes {out_dtypes}")
+    check(min(agree.values()) >= 0.99,
+          f"bf16 vs f32 decoder labels agree {agree}")
+    check(all(k["chunk"] == 32768 and k["finite"] for k in kitti.values()),
+          f"KITTI-size chunked forward: {kitti}")
+    return forms
 
 
 def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
@@ -670,7 +954,8 @@ def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
         banded_conv.launches = banded_stem_conv.launches = 0
         banded_window_conv.launches = smem_row_gather.launches = 0
         boundary_distances_all.launches = 0
-        results = eval_multi_obj.main(args, log=log)
+        with chunks_seen() as chunks:
+            results = eval_multi_obj.main(args, log=log)
         torch.cuda.synchronize()
         launches = {"banded_conv": banded_conv.launches,
                     "banded_stem": banded_stem_conv.launches,
@@ -716,7 +1001,7 @@ def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
               f"{launches['boundary_distances_all']} != {rounds} rounds")
     elapsed = lambda pairs: [a.elapsed_time(b) for a, b in pairs]
     return dict(rows=rows, ious=ious, launches=launches, wall_s=wall_s,
-                results=results, rounds=rounds,
+                results=results, rounds=rounds, chunks=chunks,
                 backbone_first_ms=elapsed(events["backbone"])[0],
                 mask_ms=elapsed(events["mask"]),
                 rounds_ms=sum(elapsed(events["rounds"])),
@@ -759,6 +1044,7 @@ def phase_main_path(torch, scans, val_list, out_dir):
           "click_buckets": {w: widths["device"].count(w)
                             for w in sorted(set(widths["device"]))},
           "launches": dev["launches"], "launches_host": host["launches"],
+          "attn_chunks": dev["chunks"], "attn_chunks_host": host["chunks"],
           "backbone_first_ms": dev["backbone_first_ms"], "backbone_ms": bb_ms,
           "device_rounds_ms": dev["rounds_ms"],
           "device_ms_per_round": dev["rounds_ms"] / dev["rounds"],
@@ -768,7 +1054,270 @@ def phase_main_path(torch, scans, val_list, out_dir):
           "final_iou": dev["ious"][-1], "iou_max_diff": iou_diff,
           "wall_s": dev["wall_s"], "wall_s_host": host["wall_s"],
           "evaluator": {k: finite(v) for k, v in dev["results"].items()}})
+    # 42 queries x 196,608 rows x 8 heads (74 queries past the 32-click
+    # bucket) exceed the dense threshold: JAX's rule picks 32,768, 6 chunks
+    check(set(dev["chunks"]) == set(host["chunks"]) == {32768},
+          f"attention chunks {dev['chunks']}, host {host['chunks']}")
     return dev["launches"]
+
+
+def _single_run(torch, scans, objects, out_dir, host_rollout: bool):
+    """One run of the single-object entry point, launches counted around
+    it, the backbone and the device rounds (or the host loop's decoder
+    calls) timed with CUDA events."""
+    from agile3d_torch import eval_single_obj
+    from agile3d_torch.engine import device_eval
+    from agile3d_torch.engine import eval as peval
+
+    argv = ["--scan_folder", scans, "--val_list", objects, "--seed", "0",
+            "--output_dir", out_dir, "--device", DEVICE]
+    args = eval_single_obj.get_args_parser().parse_args(
+        argv + (["--host_rollout"] if host_rollout else []))
+    logged = []
+    bb, rounds, masks = [], [], []
+    t0 = time.time()
+    with timed_calls(torch, peval.InteractiveEngine, "run_backbone", bb), \
+            timed_calls(torch, device_eval, "rollout_rounds", rounds), \
+            timed_calls(torch, peval.InteractiveEngine, "run_mask", masks), \
+            chunks_seen() as chunks:
+        zero_launches()
+        results = eval_single_obj.main(args, log=logged.append)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    wall_s = time.time() - t0
+    csv = os.path.join(out_dir, "val_results_single.csv")
+    rows = [r.split(" ") for r in open(csv).read().strip().split("\n") if r]
+    elapsed = lambda pairs: [a.elapsed_time(b) for a, b in pairs]
+    return dict(rows=rows, ious=[float(r[4]) for r in rows], csv=csv,
+                launches=launches, results=results, logged=logged,
+                wall_s=wall_s, chunks=chunks, backbones=len(bb),
+                backbone_ms=elapsed(bb), rounds_ms=sum(elapsed(rounds)),
+                mask_ms=elapsed(masks))
+
+
+def phase_single(torch, scans, tmp):
+    """``python -m agile3d_torch.eval_single_obj`` (in process) on the
+    smoke scene's first SINGLE_OBJECTS objects at the default 20-click
+    budget: the device rollout, then ``--host_rollout``; the rows must be
+    equal, each object one backbone (8 k3 and 1 stem launches) and each
+    device round one distance launch; ``EvaluatorSO`` finite; then
+    ``python -m agile3d_torch.compute_ap`` on the CSV."""
+    from agile3d_torch import compute_ap
+
+    objects = os.path.join(tmp, "smoke_objects.npy")
+    np.save(objects, np.array([["scene0000_00", str(o)]
+                               for o in range(1, SINGLE_OBJECTS + 1)]))
+    dev = _single_run(torch, scans, objects, os.path.join(tmp, "single_dev"),
+                      host_rollout=False)
+    host = _single_run(torch, scans, objects,
+                       os.path.join(tmp, "single_host"), host_rollout=True)
+    n_rows = SINGLE_OBJECTS * 21
+    iou_diff = max(abs(a - b) for a, b in zip(dev["ious"], host["ious"]))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ap = compute_ap.main(types.SimpleNamespace(result_file=dev["csv"]))
+    ap_values = [v for row in ap.values() for v in row.values()]
+    rounds = n_rows - SINGLE_OBJECTS
+    emit({"phase": "single", "objects": SINGLE_OBJECTS,
+          "csv_rows": len(dev["rows"]), "rounds": rounds,
+          "launches": dev["launches"], "launches_host": host["launches"],
+          "attn_chunks": dev["chunks"], "attn_chunks_host": host["chunks"],
+          "backbone_ms": dev["backbone_ms"],
+          "device_rounds_ms": dev["rounds_ms"],
+          "device_ms_per_round": dev["rounds_ms"] / rounds,
+          "host_mask_ms_median": statistics.median(host["mask_ms"]),
+          "wall_s": dev["wall_s"], "wall_s_host": host["wall_s"],
+          "iou_max_diff": iou_diff,
+          "final_ious": [dev["ious"][i * 21 + 20]
+                         for i in range(SINGLE_OBJECTS)],
+          "evaluator": {k: finite(v) for k, v in dev["results"].items()},
+          "ap": {k: ap[k] for k in (1, 5, 10, 20)},
+          "compute_ap_lines": len(buf.getvalue().splitlines())})
+    for tag, r in (("device rollout", dev), ("host rollout", host)):
+        check(len(r["rows"]) == n_rows and all(len(x) == 5 for x in r["rows"]),
+              f"single, {tag}: {len(r['rows'])} rows != {n_rows}")
+        check(r["backbones"] == SINGLE_OBJECTS,
+              f"single, {tag}: {r['backbones']} backbone calls")
+        check(r["launches"]["banded_conv"] == 8 * SINGLE_OBJECTS
+              and r["launches"]["banded_stem"] == SINGLE_OBJECTS,
+              f"single, {tag}: launches {r['launches']}")
+        check(r["launches"]["banded_window_conv"]
+              == r["launches"]["smem_row_gather"]
+              == r["launches"]["banded_conv_dw"] == 0,
+              f"single, {tag}: a kernel of another path ran: {r['launches']}")
+        check(r["results"] in r["logged"] and all(
+            math.isfinite(v) for v in r["results"].values()),
+              f"single, {tag}: evaluator {r['results']}")
+        check(set(r["chunks"]) == {32768},
+              f"single, {tag}: attention chunks {r['chunks']}")
+    check([r[:4] for r in dev["rows"]] == [r[:4] for r in host["rows"]]
+          and [r[3] for r in dev["rows"][:21]] == [str(k) for k in range(21)],
+          "single: device and host rollouts wrote other rows")
+    check(iou_diff <= 1e-5, f"single: device vs host IoU differs by "
+                            f"{iou_diff}")
+    check(dev["launches"]["boundary_distances_all"] == rounds
+          and host["launches"]["boundary_distances_all"] == 0,
+          f"single: distance launches {dev['launches']} / {host['launches']}"
+          f" != {rounds} / 0")
+    check(sorted(ap) == list(range(1, 21)) and all(
+        math.isfinite(v) and 0.0 <= v <= 1.0 for v in ap_values)
+          and "Results for 20 clicks." in buf.getvalue(),
+          f"compute_ap: {ap}")
+    return {k: dev["launches"][k] + host["launches"][k]
+            for k in dev["launches"]}
+
+
+def _write_interactive_scene(scans, root):
+    """The smoke scan in the annotation tool's layout:
+    ``<root>/scene_smoke/{scan,label}.ply``."""
+    from agile3d_torch.data.ply import read_ply, write_ply
+
+    pc = read_ply(os.path.join(scans, "scene0000_00.ply"))
+    d = os.path.join(root, "scene_smoke")
+    os.makedirs(d)
+    xyz = {k: pc[k] for k in ("x", "y", "z")}
+    write_ply(os.path.join(d, "scan.ply"),
+              {**xyz, **{k: pc[k] for k in ("R", "G", "B")}})
+    write_ply(os.path.join(d, "label.ply"), {**xyz, "label": pc["label"]})
+    return root
+
+
+def _scripted_clicks(labels, n: int):
+    """``n`` clicks as an annotator would give them: the objects in turn,
+    then the background, each time on another voxel of that object."""
+    ids = [o for o in range(1, int(labels.max()) + 1) if (labels == o).any()]
+    ids.append(0)
+    click_idx, times, sets = {"0": []}, {"0": []}, []
+    for t in range(n):
+        o = ids[t % len(ids)]
+        rows = np.nonzero(labels == o)[0]
+        row = int(rows[(t // len(ids)) * 7919 % len(rows)])
+        click_idx.setdefault(str(o), []).append(row)
+        times.setdefault(str(o), []).append(t)
+        sets.append(({k: list(v) for k, v in click_idx.items()},
+                     {k: list(v) for k, v in times.items()}))
+    return sets
+
+
+def _post_click(base, click_idx, times):
+    req = urllib.request.Request(
+        base + "/click", method="POST",
+        data=json.dumps({"click_idx": click_idx,
+                         "click_time_idx": times}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read(), dict(r.headers)
+
+
+def phase_serve(torch, scans, tmp):
+    """The annotation server on the smoke scene, at bf16 (the serving
+    default) and at f32: the scene load (launches: 8 k3 and 1 stem), a
+    scripted session of SERVE_CLICKS clicks (per-click wall time and
+    CUDA-event decoder time, p50 / p90; launches: 0), and at bf16 one
+    ``POST /click`` through the HTTP front end on localhost. The p50 is
+    printed beside SERVE_LIMIT_MS, not held to it."""
+    from http.server import ThreadingHTTPServer
+
+    from agile3d_torch.config import Config, ModelConfig
+    from agile3d_torch.interactive import (
+        InteractiveDataLoader,
+        InteractiveSegmentationServer,
+    )
+    from agile3d_torch.interactive.web import make_handler
+
+    root = _write_interactive_scene(scans, os.path.join(tmp, "interactive"))
+    rows, total = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.time()
+        cfg = Config(model=dataclasses.replace(ModelConfig(),
+                                               decoder_dtype=dtype))
+        zero_launches()
+        server = InteractiveSegmentationServer(
+            InteractiveDataLoader(root, f"smoke_{dtype}"), cfg=cfg,
+            device=DEVICE, seed=0)
+        torch.cuda.synchronize()
+        start_s = time.time() - t0
+        start_launches = read_launches()
+        zero_launches()
+        t0 = time.time()
+        server.load_scene(0)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        load_launches = read_launches()
+
+        sets = _scripted_clicks(server.sample.labels, SERVE_CLICKS)
+        decoder, wall, ious = [], [], []
+        zero_launches()
+        with timed_calls(torch, server.engine.model, "forward_mask", decoder):
+            for click_idx, times in sets:
+                t0 = time.perf_counter()
+                pred_full, iou = server.get_next_click(click_idx, times)
+                wall.append(1e3 * (time.perf_counter() - t0))
+                ious.append(iou)
+        click_launches = read_launches()
+        decoder_ms = [a.elapsed_time(b) for a, b in decoder]
+        row = {"scene_rows": server.scene.mask_feat.shape[1],
+               "num_valid": server.n_valid, "points": len(pred_full),
+               "mask_dtype": str(server.scene.mask_feat.dtype),
+               "start_s": start_s, "scene_load_s": load_s,
+               "launches_start": start_launches,
+               "launches_scene_load": load_launches,
+               "launches_clicks": click_launches,
+               "click_wall_ms": wall, "click_decoder_ms": decoder_ms,
+               "wall_p50_ms": percentile(wall, 50),
+               "wall_p90_ms": percentile(wall, 90),
+               "decoder_p50_ms": percentile(decoder_ms, 50),
+               "decoder_p90_ms": percentile(decoder_ms, 90),
+               "limit_ms": SERVE_LIMIT_MS,
+               "wall_p50_within_limit": percentile(wall, 50) <= SERVE_LIMIT_MS,
+               "ious": ious}
+        for tag, got in (("server start", start_launches),
+                         ("scene load", load_launches)):
+            check(got["banded_conv"] == 8 and got["banded_stem"] == 1
+                  and sum(got.values()) == 9,
+                  f"serve {dtype}, {tag}: launches {got}")
+        check(sum(click_launches.values()) == 0,
+              f"serve {dtype}: a kernel ran on the click path: "
+              f"{click_launches}")
+        check(len(decoder_ms) == SERVE_CLICKS and all(
+            iou is not None and 0.0 <= iou <= 1.0 for iou in ious),
+              f"serve {dtype}: decoder calls {len(decoder_ms)}, IoUs {ious}")
+        check(len(pred_full) == len(server.loader.coords),
+              f"serve {dtype}: {len(pred_full)} labels")
+        if dtype == "bfloat16":
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                        make_handler(server))
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                click_idx, times = sets[-1]
+                t0 = time.perf_counter()
+                status, body, headers = _post_click(
+                    f"http://127.0.0.1:{httpd.server_address[1]}",
+                    click_idx, times)
+                http_ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=60)
+            check(not thread.is_alive(), "the HTTP server did not stop")
+            labels = np.frombuffer(body, np.uint8)
+            check(status == 200 and len(labels) == server.n_valid
+                  and headers.get("X-IoU") == f"{ious[-1]:.4f}",
+                  f"POST /click: {status}, {len(labels)} labels, "
+                  f"X-IoU {headers.get('X-IoU')} vs {ious[-1]:.4f}")
+            row["http"] = {"status": status, "round_trip_ms": http_ms,
+                           "x_latency_ms": float(headers["X-Latency-Ms"]),
+                           "x_iou": headers["X-IoU"]}
+        rows[dtype] = row
+        for k, v in (*start_launches.items(), *load_launches.items(),
+                     *click_launches.items()):
+            total[k] = total.get(k, 0) + v
+        del server
+        torch.cuda.empty_cache()
+    emit({"phase": "serve", **rows})
+    return total
 
 
 def _banded_levels(pyr) -> int:
@@ -1038,7 +1587,8 @@ def phase_train_main_path(torch, scans, train_list, tmp):
         banded_conv.launches = banded_conv_dw.launches = 0
         banded_stem_conv.launches = 0
         banded_window_conv.launches = smem_row_gather.launches = 0
-        hist = pmain.main(args, log=log)
+        with chunks_seen() as chunks:
+            hist = pmain.main(args, log=log)
         torch.cuda.synchronize()
         launches = counts()
         probe_launches = {"banded_window_conv": banded_window_conv.launches,
@@ -1095,6 +1645,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
                         "banded_conv_dw": launches[1],
                         "banded_stem": launches[2], **probe_launches},
            "launches_per_step": per_step, "launches_val": val_launches,
+           "attn_chunks": chunks,
            "loss": [st["loss"] for st in steps],
            "gnorm": [st["gnorm"] for st in steps],
            "miou": [st["miou"] for st in steps],
@@ -1110,6 +1661,8 @@ def phase_train_main_path(torch, scans, train_list, tmp):
            "val": {k: finite(v) for k, v in hist["val"].get(0, {}).items()}}
     emit(row)
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps != {TRAIN_STEPS}")
+    # 98,304-row samples at batch 5: 16,384, 6 chunks (rollout, step, val)
+    check(set(chunks) == {16384}, f"training attention chunks {chunks}")
     for st in steps:
         check(st["rows"][0] == 524288 and st["rows"][1] >= 32768,
               f"training batch rows {st['rows']}: not the 524,288-row bucket")
@@ -1205,7 +1758,9 @@ def phase_train_device_rollout(torch, scans, train_list, tmp):
         banded_conv.launches = banded_conv_dw.launches = 0
         banded_stem_conv.launches = boundary_distances_all.launches = 0
         banded_window_conv.launches = smem_row_gather.launches = 0
-        pmain.main(args, log=lambda msg: print(f"main: {msg}", flush=True))
+        with chunks_seen() as chunks:
+            pmain.main(args, log=lambda msg: print(f"main: {msg}",
+                                                   flush=True))
         torch.cuda.synchronize()
         launches = counts()
         probe_launches = {"banded_window_conv": banded_window_conv.launches,
@@ -1281,12 +1836,14 @@ def phase_train_device_rollout(torch, scans, train_list, tmp):
            "rollout_wall_s": seen["rollout_wall_s"],
            "step_ms": seen["step"][0].elapsed_time(seen["step"][1]),
            "loss": seen["loss"], "gnorm": seen["gnorm"], "wall_s": wall_s,
+           "attn_chunks": chunks,
            "pinned": {"counts": dev_counts.tolist(), "sets_equal": sets_equal,
                       "device_rollout_ms": dev_ms,
                       "device_rollout_wall_s": dev_wall,
                       "host_rollout_ms": host_ms,
                       "host_rollout_wall_s": host_wall}}
     emit(row)
+    check(set(chunks) == {16384}, f"training attention chunks {chunks}")
     check(step_launches == (24, 8, 0, DEVICE_ITERS + 1),
           f"launches of the device-rollout step {step_launches} != "
           f"(24, 8, 0, {DEVICE_ITERS + 1})")
@@ -1363,12 +1920,15 @@ def main():
                                                         train_batch))
         probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
                                                   eval_dev)
+        phase_decoder(torch, eval_batch)
         del eval_batch, eval_dev, train_batch, train_ds
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
         phase_train_reference(torch, tmp)
         eval_launches = phase_main_path(torch, scans, val_list,
                                         os.path.join(tmp, "out"))
+        single_launches = phase_single(torch, scans, tmp)
+        serve_launches = phase_serve(torch, scans, tmp)
         host_train = phase_train_main_path(torch, train_scans, train_list,
                                            tmp)
         device_train = phase_train_device_rollout(torch, train_scans,
@@ -1410,6 +1970,7 @@ def main():
             "it)"),
     }
     paths = {"probe": probe_launches, "eval": eval_launches,
+             "single": single_launches, "serve": serve_launches,
              "train": host_train, "train_device_rollout": device_train}
     kernels = []
     for name, (source, replaces, roles, unit) in meta.items():

@@ -135,3 +135,47 @@ def test_distance_cases_follow_the_batches(tmp_path):
     assert cases[2][2].shape == (1, 70001, 3) and not cases[3][4].any()
     assert (cases[4][3] == 0).all()
 
+
+
+def test_scripted_session_clicks_each_object_in_turn():
+    """The serving phase's session: the objects in turn, then the
+    background, each click on a voxel of its object at a later time, the
+    click sets growing by one."""
+    labels = np.repeat(np.arange(4, dtype=np.int32), 50)
+    sets = chip_smoke._scripted_clicks(labels, 9)
+    assert len(sets) == 9
+    order = [1, 2, 3, 0, 1, 2, 3, 0, 1]
+    for t, (click_idx, times) in enumerate(sets):
+        assert sum(len(v) for v in click_idx.values()) == t + 1
+        assert sorted(x for v in times.values() for x in v) == \
+            list(range(t + 1))
+        for obj, rows in click_idx.items():
+            assert (labels[rows] == int(obj)).all()
+    last = sets[-1][0]
+    assert [len(last[str(o)]) for o in (0, 1, 2, 3)] == \
+        [order.count(o) for o in (0, 1, 2, 3)]
+    assert len(set(last["1"])) == 3  # another voxel each time
+
+
+def test_chunks_seen_counts_each_decoder_call_and_restores():
+    from agile3d_torch.models.agile3d import Agile3D, ClickState
+    from agile3d_torch.models.agile3d import SceneFeatures
+    from tests.test_torch_model import SMALL
+    from tests.test_torch_weights import port_model_config
+
+    model = Agile3D(port_model_config(SMALL)).eval()
+    n, c = 2048, SMALL.hidden_dim
+    g = torch.Generator().manual_seed(0)
+    scene = SceneFeatures(torch.randn((1, n, c), generator=g),
+                          torch.randn((1, n, c), generator=g),
+                          torch.ones((1, n), dtype=torch.bool),
+                          torch.rand((1, n, 3), generator=g),
+                          torch.zeros((1, 3)), torch.ones((1, 3)))
+    clicks = ClickState(torch.tensor([[3, 9] + [-1] * 30]),
+                        torch.tensor([[1, 0] + [0] * 30]),
+                        torch.arange(32)[None])
+    orig = Agile3D.forward_mask
+    with torch.no_grad(), chip_smoke.chunks_seen() as seen:
+        for _ in range(2):
+            model.forward_mask(scene, clicks, torch.tensor([1]))
+    assert seen == {0: 2} and Agile3D.forward_mask is orig

@@ -28,14 +28,18 @@ torch.set_num_threads(1)
 
 def port_model_config(jcfg: ModelConfig) -> pcfg.ModelConfig:
     """The port's ModelConfig with every field the two packages share taken
-    from the JAX one."""
+    from the JAX one; the attention thresholds under their port names
+    (``xla_attn_chunk`` -> ``attn_chunk``, ``xla_attn_dense_threshold`` ->
+    ``attn_dense_threshold``)."""
     def pick(cls, src, **extra):
         kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(cls)
               if hasattr(src, f.name) and f.name not in extra}
         return cls(**kw, **extra)
 
     bb = pick(pcfg.BackboneConfig, jcfg.backbone, banded_conv=None)
-    return pick(pcfg.ModelConfig, jcfg, backbone=bb)
+    return pick(pcfg.ModelConfig, jcfg, backbone=bb,
+                attn_chunk=jcfg.xla_attn_chunk,
+                attn_dense_threshold=jcfg.xla_attn_dense_threshold)
 
 
 @pytest.fixture(scope="module")
