@@ -4,11 +4,14 @@ padding buckets.
 Mirrors the JAX package's ``config.py`` for what the eval, serving and
 training paths read: among them the decoder's attention policy (dense
 attention below a logits volume, the online-softmax chunked forms above
-it) and its dtype policy (``decoder_dtype``). The TPU-only conv switches
-(scan_blocks, factored_conv, strip_conv, stem_zdilated) and
-``backbone_dtype`` are not part of this package: convs are the plain
-gather-GEMM or the banded CUDA kernels, and the backbone runs in float32
-outside the kernels.
+it) and its dtype policy (``decoder_dtype``), the backbone's block type
+(``block``: the variant family of ``models/backbone.py``) and the training
+loop's prefetch depth. The TPU implementation knobs (scan_blocks,
+factored_conv, strip_conv, stem_zdilated) are not fields here: each
+selects a TPU layout of the same conv function (a scan over stacked
+blocks, two-stage or strip gathers, a z-dilated stem), and the port's convs
+are the plain gather-GEMM or the banded CUDA kernels. ``backbone_dtype``
+is not ported yet: the backbone runs in float32 outside the kernels.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Sequence
 
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Res16UNet34C (reference models/res16unet.py:371-372)."""
+    """Res16UNet34C by default (reference models/res16unet.py:371-372);
+    ``models/backbone.py::backbone_config`` names the other variants."""
 
     in_channels: int = 3
     init_dim: int = 32
@@ -27,10 +31,16 @@ class BackboneConfig:
     layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2)
     conv1_kernel_size: int = 5
     bn_momentum: float = 0.02
+    block: str = "basic"                # "basic" | "bottleneck"
     # Banded CUDA kernels for the wide k3 convs of the two finest levels and
     # for the k5 stem (ops/banded_conv.py, ops/banded_stem.py). None = on
     # for CUDA tensors; the CPU always takes the plain gather-GEMM.
     banded_conv: bool | None = None
+
+    @property
+    def expansion(self) -> int:
+        """Output channels of a block over its ``planes``."""
+        return 4 if self.block == "bottleneck" else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,7 @@ class ModelConfig:
     gauss_scale: float = 1.0
     hlevels: Sequence[int] = (4,)
     shared_decoder: bool = False
+    aux: bool = True
     voxel_size: float = 0.05
     backbone: BackboneConfig = dataclasses.field(default_factory=BackboneConfig)
     max_fg_objects: int = 10
@@ -93,7 +104,12 @@ class TrainConfig:
     batch_size: int = 5
     clip_max_norm: float = 0.1
     seed: int = 42
+    val_batch_size: int = 1
     max_num_clicks: int = 20            # per-object eval click budget
+    num_workers: int = 2
+    # batches assembled on a host thread ahead of the device step
+    # (data/prefetch.py; 0 = synchronous); --num_workers sets it
+    prefetch: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,11 +10,19 @@ protocol, binarised labels) budgets ``max_num_clicks`` in all, one click a
 round, and writes the absolute click count. ``evaluate_dataset`` runs the rounds on the device by
 default (``engine/device_eval.py``); ``evaluate_scene`` here is the host
 loop, whose model passes, IoU and boundary distances run on the engine's
-device while loop control and CSV writing stay on the host.
+device while loop control and CSV writing stay on the host. Scenes are
+prepared on a background thread (``data/prefetch.py``, depth 2) while the
+card runs the scene before.
+
+Before any backbone work, ``check_single_chip_rows`` holds the scene's
+padded row count against the card's memory (``utils/costs.py``): a scene
+over the budget raises ``SceneTooLargeError`` and the CLIs exit with one
+``error:`` line instead of running out of device memory mid-UNet.
 """
 
 from __future__ import annotations
 
+import os
 import random
 
 import numpy as np
@@ -22,6 +30,7 @@ import torch
 
 from agile3d_torch.config import Config
 from agile3d_torch.data.datasets import SceneBatch, collate_scenes
+from agile3d_torch.data.prefetch import BatchPrefetcher
 from agile3d_torch.engine.clicks import (
     HostClicks,
     apply_click_override,
@@ -33,6 +42,31 @@ from agile3d_torch.engine.clicks import (
 from agile3d_torch.engine.device_eval import evaluate_scene_device
 from agile3d_torch.models.agile3d import Agile3D, ClickState
 from agile3d_torch.sparse.grid import to_device
+from agile3d_torch.utils.costs import SINGLE_CHIP_HBM_GIB, eval_hbm_gib
+
+
+class SceneTooLargeError(ValueError):
+    """A scene's padded voxel count exceeds the card's memory budget.
+
+    Raised by ``check_single_chip_rows`` with the remedies in the message;
+    the CLIs catch it and exit with that one line (the reference's answer
+    to a huge scan is "crop", demo.md:39,70)."""
+
+
+def check_single_chip_rows(n_rows: int) -> None:
+    """Hold the eval footprint estimated at this padded level-0 row count
+    (``utils/costs.py::eval_hbm_gib``, anchored on a measurement on the
+    card) against one card's memory, or ``AGILE3D_HBM_GIB`` GiB where that
+    is set (the only override)."""
+    budget = float(os.environ.get("AGILE3D_HBM_GIB", SINGLE_CHIP_HBM_GIB))
+    est = eval_hbm_gib(n_rows)
+    if est > budget:
+        raise SceneTooLargeError(
+            f"scene pads to {n_rows} voxel rows (~{est:.1f} GiB estimated "
+            f"eval footprint > {budget:.2f} GiB on one card): crop the scan "
+            f"(reference demo.md guidance) or raise the voxel size "
+            f"(--voxel_size); sharding the voxel axis over several cards "
+            f"(--sp) is not ported yet")
 
 
 def resolve_device(device) -> torch.device:
@@ -87,7 +121,10 @@ class InteractiveEngine:
     def run_backbone(self, batch: SceneBatch, training: bool = False):
         """Scene features of ``batch``. ``training`` normalises with the
         batch's statistics, as the supervised step will; the new running
-        statistics are dropped (the step commits its own)."""
+        statistics are dropped (the step commits its own). Raises
+        ``SceneTooLargeError`` before any transfer when the scene is over
+        the card's memory budget."""
+        check_single_chip_rows(batch.pyramid.levels[0].grid.shape[0])
         pyr, feats, raw, sample_idx = self.device_batch(batch)
         return self.model.forward_backbone(pyr, feats, raw, sample_idx,
                                            {} if training else None)
@@ -192,12 +229,16 @@ def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
     the evaluator on it. Logs the final IoU of every tenth scene.
     ``device_rollout`` runs each scene's rounds >= 1 on the device
     (``evaluate_scene_device``), else the host loop (``evaluate_scene``);
-    the rows are the same."""
+    the rows are the same. Up to two scenes ahead are loaded and collated
+    on a host thread while a scene runs (val datasets draw nothing while
+    loading, so the rows do not change)."""
     scene_fn = evaluate_scene_device if device_rollout else evaluate_scene
     rng = random.Random(seed)
+    fetcher = BatchPrefetcher(
+        lambda i: collate_scenes([dataset[i]], engine.cfg.buckets),
+        range(len(dataset)), depth=2)
     with open(results_file, "w") as f:
-        for i in range(len(dataset)):
-            batch = collate_scenes([dataset[i]], engine.cfg.buckets)
+        for i, batch in enumerate(fetcher):
             rows = scene_fn(engine, batch, instance_id=i, rng=rng,
                             max_num_clicks=max_num_clicks, mode=mode)
             f.write("\n".join(rows) + "\n")

@@ -13,8 +13,9 @@ Per batch:
      AdamW (``make_train_step``), and the BatchNorm running statistics of
      that forward committed once.
 
-The loop is synchronous: batch assembly runs between steps (the JAX
-package overlaps it on a prefetch thread; the trajectory is the same).
+Batch assembly (step 1) runs on a host thread ahead of the device step
+(``data/prefetch.py``, depth ``cfg.train.prefetch``); the seeds are drawn
+before the first batch, so the trajectory is the same at every depth.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from agile3d_torch.config import Config
 from agile3d_torch.data.datasets import collate_scenes
+from agile3d_torch.data.prefetch import BatchPrefetcher
 from agile3d_torch.engine.clicks import HostClicks, simulate_clicks
 from agile3d_torch.engine.device_train import train_rollout
 from agile3d_torch.engine.eval import InteractiveEngine, stack_clicks
@@ -255,7 +257,9 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
                     device_rollout: bool = False) -> dict:
     """One epoch over ``dataset`` in batches of ``cfg.train.batch_size``
     (the last may be short). The order and every batch's subsample seed
-    are drawn from ``np_rng`` before the first batch. ``device_rollout``
+    are drawn from ``np_rng`` before the first batch, and the batches are
+    assembled ``cfg.train.prefetch`` ahead on a host thread (0: between
+    the steps; the same trajectory). ``device_rollout``
     runs each batch's click rollout on the device: its round count comes
     from ``py_rng`` and its generator's seed from ``np_rng``, drawn where
     the JAX package draws them. Returns the epoch's averages (loss,
@@ -267,11 +271,13 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
         order = np_rng.permutation(n)
     batches = [order[i: i + bs] for i in range(0, n, bs)]
     seeds = np_rng.integers(2 ** 31, size=len(batches))
+    fetcher = BatchPrefetcher(
+        lambda w: prepare_batch(dataset, w[0], cfg, w[1]),
+        [(ids, int(s)) for ids, s in zip(batches, seeds)],
+        depth=cfg.train.prefetch)
     sums: dict[str, float] = {}
     dev = engine.device
-    for step, (ids, seed) in enumerate(zip(batches, seeds)):
-        batch, labels_new, num_obj, n_valid = prepare_batch(
-            dataset, ids, cfg, int(seed))
+    for step, (batch, labels_new, num_obj, n_valid) in enumerate(fetcher):
         b = labels_new.shape[0]
 
         # rollout, with the backbone normalising as the supervised pass will

@@ -13,10 +13,15 @@ interactive validation and prints the evaluator's metrics.
 
 ``--device_rollout`` runs each step's click rollout on the device
 (``engine/device_train.py``) instead of the host loop; the validation runs
-the host loop, as the JAX package's does.
+the host loop, as the JAX package's does. ``--num_workers`` batches are
+assembled ahead of the step on a host thread (``data/prefetch.py``).
 
-Not in this CLI yet: ``--resume`` (no optimizer checkpoints), data
-parallelism and wandb logging.
+Takes the flags of the JAX package's ``main.py``, the reference model
+block among them (``cli.py``), except checkpoints and resume
+(``--resume``, ``--start_epoch``, ``--ckpt_epochs``) and data parallelism
+(``--num_dp``), which are not ported yet; wandb logging is not ported
+either (``--job_name`` is accepted and unused), nor is the single-object
+training dataset (``--dataset_mode multi_obj`` only).
 """
 
 from __future__ import annotations
@@ -30,6 +35,13 @@ import time
 import numpy as np
 import torch
 
+from agile3d_torch.cli import (
+    add_reference_model_flags,
+    device_arg,
+    model_config_from_args,
+    not_ported_epilog,
+    run,
+)
 from agile3d_torch.config import Config, LossConfig, TrainConfig
 from agile3d_torch.data.datasets import build_dataset
 from agile3d_torch.engine.eval import (
@@ -48,10 +60,13 @@ from agile3d_torch.utils.ckpt import save_checkpoint
 
 
 def get_args_parser():
-    p = argparse.ArgumentParser("AGILE3D training (PyTorch)", add_help=False)
+    p = argparse.ArgumentParser("AGILE3D training (PyTorch)", add_help=False,
+                                epilog=not_ported_epilog("main"))
+    p.add_argument("--dataset_mode", default="multi_obj")
     p.add_argument("--scan_folder", default="data/ScanNet/scans", type=str)
     p.add_argument("--train_list", default="data/ScanNet/train_list.json")
     p.add_argument("--val_list", default="data/ScanNet/val_list.json")
+    add_reference_model_flags(p)
     p.add_argument("--losses", default=["bce", "dice"], nargs="+",
                    choices=["bce", "dice"])
     p.add_argument("--bce_loss_coef", default=1.0, type=float)
@@ -66,8 +81,12 @@ def get_args_parser():
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--output_dir", default="output")
     p.add_argument("--max_num_clicks", default=20, type=int)
-    p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default) or cpu")
+    p.add_argument("--job_name", default="test", type=str,
+                   help="accepted for reference scripts; unused (no wandb)")
+    p.add_argument("--num_workers", default=2, type=int,
+                   help="batches assembled ahead of the step on a host "
+                        "thread (the reference's DataLoader workers)")
+    p.add_argument("--val_batch_size", default=1, type=int)
     p.add_argument("--device_rollout", action="store_true",
                    help="run the training click rollout on the device "
                         "instead of the per-round host loop")
@@ -76,21 +95,27 @@ def get_args_parser():
 
 def build_config(args) -> Config:
     return Config(
+        model=model_config_from_args(args),
         loss=LossConfig(losses=tuple(args.losses),
                         bce_loss_coef=args.bce_loss_coef,
-                        dice_loss_coef=args.dice_loss_coef),
+                        dice_loss_coef=args.dice_loss_coef, aux=args.aux),
         train=TrainConfig(
             lr=args.lr, weight_decay=args.weight_decay,
             lr_drop=tuple(args.lr_drop), epochs=args.epochs,
             val_epochs=args.val_epochs, batch_size=args.batch_size,
+            val_batch_size=args.val_batch_size,
             clip_max_norm=args.clip_max_norm, seed=args.seed,
-            max_num_clicks=args.max_num_clicks))
+            max_num_clicks=args.max_num_clicks,
+            num_workers=args.num_workers, prefetch=args.num_workers))
 
 
 def main(args, log=print) -> dict:
     """Train; returns {"epochs": [per-epoch averages], "val": {epoch:
     evaluator dict}, "model": the trained model}."""
-    device = resolve_device(args.device)
+    if args.dataset_mode != "multi_obj":
+        raise SystemExit(f"--dataset_mode {args.dataset_mode}: only "
+                         "multi_obj training is ported")
+    device = resolve_device(device_arg(args))
     cfg = build_config(args)
     seed = args.seed
     np.random.seed(seed)
@@ -101,11 +126,11 @@ def main(args, log=print) -> dict:
 
     model = init_agile3d(cfg.model, seed=seed, device="cpu")
     log(f"number of params: {sum(p.numel() for p in model.parameters())}")
-    dataset_train = build_dataset("train", "multi_obj",
+    dataset_train = build_dataset("train", args.dataset_mode,
                                   scan_folder=args.scan_folder,
                                   scene_list=args.train_list,
                                   voxel_size=cfg.model.voxel_size, seed=seed)
-    dataset_val = build_dataset("val", "multi_obj",
+    dataset_val = build_dataset("val", args.dataset_mode,
                                 scan_folder=args.scan_folder,
                                 scene_list=args.val_list,
                                 voxel_size=cfg.model.voxel_size)
@@ -148,8 +173,12 @@ def main(args, log=print) -> dict:
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser("AGILE3D training script",
-                                     parents=[get_args_parser()])
-    args = parser.parse_args()
+                                     parents=[get_args_parser()],
+                                     epilog=not_ported_epilog("main"))
     run_id = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-    args.output_dir = os.path.join(args.output_dir, run_id)
-    main(args)
+
+    def main_in_run_dir(args):
+        args.output_dir = os.path.join(args.output_dir, run_id)
+        return main(args)
+
+    run(parser, main_in_run_dir)

@@ -130,6 +130,15 @@ class Agile3D(nn.Module):
         if cfg.dropout > 0:
             raise NotImplementedError(
                 "decoder dropout is not ported yet (dropout must be 0.0)")
+        if cfg.backbone.block != "basic":
+            raise ValueError(
+                f"block {cfg.backbone.block!r}: the model takes BasicBlock "
+                f"backbones only. A Bottleneck backbone's stride-1 output has "
+                f"planes[7] * 4 = {cfg.backbone.planes[7] * 4} channels, and "
+                f"the JAX package's lin_squeeze takes planes[7] = "
+                f"{cfg.backbone.planes[7]} (agile3d_tpu/models/agile3d.py:117), "
+                f"so its forward_backbone fails the same way; run the "
+                f"backbone alone (models/backbone.py::Res16UNet)")
         self.cfg = cfg
         c = cfg.hidden_dim
         self.backbone = Res16UNet(cfg.backbone)

@@ -1,9 +1,15 @@
-"""Res16UNet34C sparse-voxel UNet, eval and training mode (counterpart of
-the JAX package's ``models/backbone.py`` for the BasicBlock variants).
+"""The Res16UNet family of sparse-voxel UNets, eval and training mode
+(counterpart of the JAX package's ``models/backbone.py``).
 
-  stem conv k=5 at stride 1 -> 4 down stages (k=2 s=2 conv + BasicBlocks)
-  -> 4 up stages (k=2 s=2 transposed conv + skip concat + BasicBlocks),
+  stem conv k=5 at stride 1 -> 4 down stages (k=2 s=2 conv + blocks)
+  -> 4 up stages (k=2 s=2 transposed conv + skip concat + blocks),
   emitting 5 feature maps at strides 16/8/4/2/1.
+
+The variants differ in (block, layers, planes) only: ``BACKBONE_VARIANTS``
+holds the reference's 20 (reference res16unet.py:298-423), Res16UNet34C the
+default. ``BasicBlock`` is two k3 convs; ``Bottleneck`` is 1x1 -> k3 ->
+1x1 with 4x expansion, so every stage's output and every skip carry
+``planes * expansion`` channels.
 
 Module and parameter names are the reference's (conv0p1s1, bn0, block1,
 ..., convtr7p2s2, block8; ``.kernel`` for sparse-conv weights, ``.bn`` under
@@ -13,7 +19,10 @@ each BatchNorm), so reference state dicts map onto this module key for key
 Routing of the CUDA kernels mirrors the JAX package on the TPU:
   * k3 convs at pyramid levels 0 and 1 with >= 32768 padded rows and
     cin >= 86 (where the TPU's packed strips lose: 3 * cin * 2 B > 512 B)
-    go to ``ops.banded_conv`` -- block7 and block8 of Res16UNet34C;
+    go to ``ops.banded_conv``, conv by conv -- block7 and block8 of
+    Res16UNet34C (128 -> 96, 96 -> 96), 416 -> 384 and 384 -> 384 in
+    Res16UNet14D and 18D, the Bottleneck's middle 256 -> 256 in
+    Res16UNet50 and 101, only the 96 -> 64 first convs in Res16UNet34A;
   * the k5 stem at level 0 with >= 32768 padded rows goes to
     ``ops.banded_stem`` in eval only: it has no backward kernel, so
     training takes the plain conv for the stem, as the JAX package does;
@@ -125,20 +134,125 @@ class BasicBlock(nn.Module):
         return torch.relu(out + residual)
 
 
+class Bottleneck(nn.Module):
+    """conv 1x1 -> BN -> relu -> conv k3 -> BN -> relu -> conv 1x1 to
+    planes * 4 -> BN (+ 1x1 downsample when cin != planes * 4) -> add
+    residual -> relu (reference resnet_block.py:79-137)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, momentum: float):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = SparseConv(1, cin, planes)
+        self.norm1 = BatchNorm(planes, momentum)
+        self.conv2 = SparseConv(27, planes, planes)
+        self.norm2 = BatchNorm(planes, momentum)
+        self.conv3 = SparseConv(1, planes, out)
+        self.norm3 = BatchNorm(out, momentum)
+        self.downsample = (nn.Sequential(SparseConv(1, cin, out),
+                                         BatchNorm(out, momentum))
+                           if cin != out else None)
+
+    def forward(self, x, k3, valid, banded: bool, bn_stats=None):
+        conv3 = _conv3_banded if banded else sparse_conv
+        out = torch.relu(self.norm1(linear(x, self.conv1.kernel), valid,
+                                    bn_stats))
+        out = torch.relu(self.norm2(conv3(out, k3, self.conv2.kernel), valid,
+                                    bn_stats))
+        out = self.norm3(linear(out, self.conv3.kernel), valid, bn_stats)
+        if self.downsample is not None:
+            residual = self.downsample[1](
+                linear(x, self.downsample[0].kernel), valid, bn_stats)
+        else:
+            residual = x
+        return torch.relu(out + residual)
+
+
+_BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+
+
 def _conv3_banded(x, k3, w):
     if x.shape[1] >= BANDED_MIN_CIN:
         return BandedConv.apply(x, k3, w)
     return sparse_conv(x, k3, w)
 
 
+def _variant(layers, planes, block="basic"):
+    return BackboneConfig(layers=tuple(layers), planes=tuple(planes),
+                          block=block)
+
+
+_L14 = (1, 1, 1, 1, 1, 1, 1, 1)
+_L18 = (2, 2, 2, 2, 2, 2, 2, 2)
+_L34 = (2, 3, 4, 6, 2, 2, 2, 2)
+_P_BASE = (32, 64, 128, 256, 256, 256, 256, 256)
+
+# the reference's variants (reference res16unet.py:298-423)
+BACKBONE_VARIANTS = {
+    "Res16UNet14": _variant(_L14, _P_BASE),
+    "Res16UNet18": _variant(_L18, _P_BASE),
+    "Res16UNet34": _variant(_L34, _P_BASE),
+    "Res16UNet50": _variant(_L34, _P_BASE, block="bottleneck"),
+    "Res16UNet101": _variant((2, 3, 4, 23, 2, 2, 2, 2), _P_BASE,
+                             block="bottleneck"),
+    "Res16UNet14A": _variant(_L14, (32, 64, 128, 256, 128, 128, 96, 96)),
+    "Res16UNet14A2": _variant((1, 1, 1, 1, 2, 2, 2, 2),
+                              (32, 64, 128, 256, 128, 128, 96, 96)),
+    "Res16UNet14B": _variant(_L14, (32, 64, 128, 256, 128, 128, 128, 128)),
+    "Res16UNet14B2": _variant((1, 1, 1, 1, 2, 2, 2, 2),
+                              (32, 64, 128, 256, 128, 128, 128, 128)),
+    "Res16UNet14B3": _variant((2, 2, 2, 2, 1, 1, 1, 1),
+                              (32, 64, 128, 256, 128, 128, 128, 128)),
+    "Res16UNet14C": _variant(_L14, (32, 64, 128, 256, 192, 192, 128, 128)),
+    "Res16UNet14D": _variant(_L14, (32, 64, 128, 256, 384, 384, 384, 384)),
+    "Res16UNet18A": _variant(_L18, (32, 64, 128, 256, 128, 128, 96, 96)),
+    "Res16UNet18B": _variant(_L18, (32, 64, 128, 256, 128, 128, 128, 128)),
+    "Res16UNet18D": _variant(_L18, (32, 64, 128, 256, 384, 384, 384, 384)),
+    "Res16UNet34A": _variant(_L34, (32, 64, 128, 256, 256, 128, 64, 64)),
+    "Res16UNet34B": _variant(_L34, (32, 64, 128, 256, 256, 128, 64, 32)),
+    "Res16UNet34C": _variant(_L34, (32, 64, 128, 256, 256, 128, 96, 96)),
+    "Res16UNet34D": _variant(_L34, (32, 64, 128, 256, 256, 128, 96, 128)),
+    "Custom30M": _variant(_L34, (32, 64, 128, 256, 128, 64, 64, 32)),
+}
+
+
+def backbone_config(name: str) -> BackboneConfig:
+    """The named variant; the flagship is Res16UNet34C (reference
+    models/backbone.py:5-7)."""
+    return BACKBONE_VARIANTS[name]
+
+
+def banded_convs(cfg: BackboneConfig) -> int:
+    """k3 convs of one forward that the routing sends to the banded kernel
+    when both finest levels qualify by rows: those with cin >= 86 in the
+    stages at levels 0 and 1 (block1, block7, block8)."""
+    exp, d0, planes, layers = cfg.expansion, cfg.init_dim, cfg.planes, cfg.layers
+    # (first block's k3 input, later blocks' k3 input) per stage
+    stages = [(d0, planes[0] * exp, planes[0], layers[0]),
+              (planes[6] + planes[0] * exp, planes[6] * exp, planes[6],
+               layers[6]),
+              (planes[7] + d0, planes[7] * exp, planes[7], layers[7])]
+    count = 0
+    for first_in, later_in, p, n in stages:
+        for b in range(n):
+            ins = ((p,) if cfg.block == "bottleneck"
+                   else (first_in if b == 0 else later_in, p))
+            count += sum(c >= BANDED_MIN_CIN for c in ins)
+    return count
+
+
 class Res16UNet(nn.Module):
-    """Res16UNet with BasicBlocks; forward(pyr, feats) -> 5 FPN maps
+    """Res16UNet of ``cfg.block``s; forward(pyr, feats) -> 5 FPN maps
     [stride 16, 8, 4, 2, 1], each [N_l_pad, C] with zero pad rows."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig()):
         super().__init__()
+        if cfg.block not in _BLOCKS:
+            raise ValueError(f"block {cfg.block!r}: 'basic' or 'bottleneck'")
         self.cfg = cfg
         planes, layers, d0 = cfg.planes, cfg.layers, cfg.init_dim
+        exp = cfg.expansion
         mom = cfg.bn_momentum
         self.conv0p1s1 = SparseConv(cfg.conv1_kernel_size ** 3,
                                     cfg.in_channels, d0)
@@ -150,9 +264,11 @@ class Res16UNet(nn.Module):
             setattr(self, f"bn{i + 1}", BatchNorm(down_in, mom))
             setattr(self, f"block{i + 1}",
                     self._stage(down_in, planes[i], layers[i], mom))
-            down_in = planes[i]
-        skips = [planes[2], planes[1], planes[0], d0]
-        tr_in = planes[3]
+            down_in = planes[i] * exp
+        # the skips carry the block expansion, as the reference's inplanes
+        # updates (reference res16unet.py:140,163,186,209)
+        skips = [planes[2] * exp, planes[1] * exp, planes[0] * exp, d0]
+        tr_in = planes[3] * exp
         for j, name in enumerate(("convtr4p16s2", "convtr5p8s2",
                                   "convtr6p4s2", "convtr7p2s2")):
             i = 4 + j
@@ -161,13 +277,13 @@ class Res16UNet(nn.Module):
             setattr(self, f"block{i + 1}",
                     self._stage(planes[i] + skips[j], planes[i], layers[i],
                                 mom))
-            tr_in = planes[i]
+            tr_in = planes[i] * exp
 
-    @staticmethod
-    def _stage(cin, planes, n_blocks, momentum):
-        return nn.ModuleList(
-            BasicBlock(cin if b == 0 else planes, planes, momentum)
-            for b in range(n_blocks))
+    def _stage(self, cin, planes, n_blocks, momentum):
+        block = _BLOCKS[self.cfg.block]
+        out = planes * self.cfg.expansion
+        return nn.ModuleList(block(cin if b == 0 else out, planes, momentum)
+                             for b in range(n_blocks))
 
     def _use_banded(self, x: torch.Tensor) -> bool:
         flag = self.cfg.banded_conv
@@ -220,3 +336,20 @@ class Res16UNet(nn.Module):
             out = run_stage(getattr(self, f"block{i + 1}"), out, tgt)
             feature_maps.append(out)
         return feature_maps
+
+
+@torch.no_grad()
+def init_res16unet(cfg: BackboneConfig = BackboneConfig(), seed: int = 0,
+                   device="cuda") -> Res16UNet:
+    """The backbone alone with random weights drawn from
+    ``torch.Generator(seed)`` (ME's uniform +-1/sqrt(cin * K) for the
+    convs, identity BatchNorm), in eval mode on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    net = Res16UNet(cfg)
+    for mod in net.modules():
+        if isinstance(mod, SparseConv):
+            k = mod.kernel
+            vol, cin = (k.shape[0], k.shape[1]) if k.dim() == 3 else (1, k.shape[0])
+            k.copy_((torch.rand(k.shape, generator=g) * 2 - 1)
+                    * (cin * vol) ** -0.5)
+    return net.to(device).eval()

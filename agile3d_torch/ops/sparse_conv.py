@@ -70,3 +70,28 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
         y = torch.where(valid[:, None], y, torch.zeros((), dtype=y.dtype,
                                                        device=y.device))
     return y
+
+
+def avg_pool_down(x: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """Kernel-2 stride-2 average pooling onto the coarser level (ME
+    MinkowskiAvgPooling; reference models/agile3d.py:71): the mean over the
+    present children. down [N_coarse, 8] rows into x."""
+    total = masked_gather(x, down.reshape(-1)).reshape(
+        down.shape[0], down.shape[1], x.shape[1]).sum(1)
+    count = (down >= 0).sum(1).to(x.dtype)
+    return total / count.clamp(min=1)[:, None]
+
+
+def sum_pool_down(x: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """Kernel-2 stride-2 sum pooling (ME MinkowskiSumPooling, reference
+    models/modules/common.py:240-258)."""
+    return masked_gather(x, down.reshape(-1)).reshape(
+        down.shape[0], down.shape[1], x.shape[1]).sum(1)
+
+
+def avg_unpool_up(x_coarse: torch.Tensor,
+                  up_parent: torch.Tensor) -> torch.Tensor:
+    """Kernel-2 stride-2 average unpooling (ME MinkowskiAvgUnpooling,
+    reference models/modules/common.py:219-237): each fine row takes its
+    parent's value."""
+    return masked_gather(x_coarse, up_parent)

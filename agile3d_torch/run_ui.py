@@ -9,19 +9,27 @@ default). Clients:
   --terminal  a REPL taking ``<obj_id> <x> <y> <z>`` clicks
 
 The decoder runs in bf16 by default (``--decoder_dtype``), as the JAX
-package serves; float32 is the eval CLIs' default.
-``--pretraining_weights`` takes a reference ``.pth``; without one the
-weights are random, drawn from ``--seed``.
+package serves; float32 is the eval CLIs' default. Takes every flag of
+the JAX package's ``run_ui.py``, the reference model block among them
+(``cli.py``). ``--pretraining_weights`` takes a reference ``.pth``;
+without one (the default: the released ``checkpoint1099.pth`` is not in
+the repository) the weights are random, drawn from ``--seed``. A scene
+over the card's memory exits with one ``error:`` line.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 
-from agile3d_torch.config import Config, ModelConfig
+from agile3d_torch.cli import (
+    add_reference_model_flags,
+    device_arg,
+    model_config_from_args,
+    run,
+)
+from agile3d_torch.config import Config
 from agile3d_torch.interactive import (
     InteractiveDataLoader,
     InteractiveSegmentationServer,
@@ -32,12 +40,15 @@ def get_args_parser():
     p = argparse.ArgumentParser("AGILE3D interactive tool")
     p.add_argument("--user_name", default="user", type=str)
     p.add_argument("--pretraining_weights", default="", type=str,
-                   help="reference .pth; empty = random weights from --seed")
+                   help="reference .pth; empty (the default, since "
+                        "checkpoint1099.pth is not in the repository) = "
+                        "random weights from --seed")
     p.add_argument("--dataset_scenes", default="data/interactive_dataset",
                    type=str)
+    p.add_argument("--point_type", default=None, type=str,
+                   help="accepted for reference scripts; unused")
+    add_reference_model_flags(p)
     p.add_argument("--seed", default=0, type=int)
-    p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default) or cpu")
     p.add_argument("--decoder_dtype", default="bfloat16",
                    choices=("float32", "bfloat16"))
     p.add_argument("--terminal", action="store_true",
@@ -84,12 +95,12 @@ def terminal_loop(server: InteractiveSegmentationServer, read=input,
 
 
 def main(args):
-    cfg = Config(model=dataclasses.replace(ModelConfig(),
-                                           decoder_dtype=args.decoder_dtype))
+    cfg = Config(model=model_config_from_args(
+        args, decoder_dtype=args.decoder_dtype))
     loader = InteractiveDataLoader(args.dataset_scenes, args.user_name)
     server = InteractiveSegmentationServer(
         loader, weights=args.pretraining_weights or None, cfg=cfg,
-        device=args.device, seed=args.seed)
+        device=device_arg(args), seed=args.seed)
     if args.terminal:
         terminal_loop(server)
     else:
@@ -100,4 +111,4 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(get_args_parser().parse_args())
+    run(get_args_parser(), main)

@@ -79,6 +79,21 @@ def time_ms(fn, device: torch.device, reps: int = 10,
     return statistics.median(times)
 
 
+def wall_ms(fn, device: torch.device, reps: int = 10) -> float:
+    """Median host-clock time of ``fn`` through a synchronize: what a
+    caller waits, launches included."""
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def device_label(device: torch.device) -> str:
     """What the times were taken on: the card's name and power limit as
     ``nvidia-smi`` reports them, or the CPU."""

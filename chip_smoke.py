@@ -9,7 +9,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 from ``agile3d_torch/csrc`` (one nvcc per source, all at once);
   2. kernels -- each kernel at the main paths' shapes (the eval smoke
                 scene's neighbour maps; the training batch's for the
-                training forward, dX and dW) against its plain PyTorch
+                training forward, dX and dW), then B1 at the Res16UNet
+                variants' shapes (416 -> 384, 384 -> 384, 256 -> 256,
+                96 -> 64 on the smoke scene's two finest maps; dX and dW at
+                416 -> 384 and 256 -> 256 on the training reference batch's
+                65,536-row level), against its plain PyTorch
                 version on the card, with device times from CUDA events
                 (median of 10 after warm-up, each call behind a short spin
                 kernel so that the host's launch work is not timed) for the
@@ -46,13 +50,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 counted;
   7. main path -- ``python -m agile3d_torch.eval_multi_obj`` (in process) on
                 the synthetic smoke scene (400,000 points, 8 objects) at full
-                Res16UNet34C width with seeded random weights, 5 clicks per
+                Res16UNet34C width with seeded random weights, the reference
+                model block passed at its defaults, 5 clicks per
                 object (the click table crosses a bucket): the default
                 device rollout, then ``--host_rollout``, each with the
                 kernels' launch counts read around it (one boundary-distance
                 launch per device round; the probes' kernels: 0); the CSV
                 rows of the two must agree, and the decoder must see the
-                same click bucket in each round of both;
+                same click bucket in each round of both; then once more with
+                the memory budget pinned at 0.01 GiB (``AGILE3D_HBM_GIB``):
+                one ``error:`` line, a non-zero exit and no kernel launch;
   8. single -- ``python -m agile3d_torch.eval_single_obj`` (in process) on
                 the smoke scene's first 3 objects at the default 20 clicks:
                 the device rollout, then ``--host_rollout``; rows equal, 8 k3
@@ -66,6 +73,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 which is reported and not enforced; no kernel launch per
                 click) and one ``POST /click`` through the HTTP front end
                 on localhost;
+  11. variants -- Res16UNet14D (BasicBlock) through the whole model on the
+                smoke scene, kernels on then off, and ``evaluate_dataset``
+                through the device rollout at 2 clicks per object;
+                Res16UNet101 (Bottleneck) as the backbone alone, kernels on
+                and off, and ``Agile3D`` refusing it; B1 launches as the
+                routing rule predicts (4 and 4), one stem launch;
+  12. memory -- the peak device memory of one eval ``forward_backbone``
+                and ``forward_mask`` at the smoke scene's 196,608 rows and at
+                a scene that pads to 786,432 (KITTI-360 size), against the
+                oversize guard's estimate;
   10. train main path -- ``python -m agile3d_torch.main`` (in process): 10
                 synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
                 level-0 bucket), one epoch of 2 steps and one validation at
@@ -75,7 +92,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 CUDA events; then one step with ``--device_rollout`` at a
                 fixed round count, whose batch then goes through the device
                 and the host rollouts with the click order pinned: the
-                click sets must agree.
+                click sets must agree;
+  13. benches -- ``python -m agile3d_torch.bench`` and ``bench_train``
+                (``--batches 2``) in process: their JSON lines finite, 8 k3
+                + 1 stem launches per eval backbone forward, 16 k3 + 8 dW
+                per supervised step.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -142,6 +163,35 @@ KITTI_ROWS = 786432
 KITTI_VALID = 670000
 KITTI_CLICKS = 256
 DEVICE = "cuda"
+# the Res16UNet variants' new shapes for B1 at the smoke scene's two finest
+# levels (14D: 416 -> 384, 384 -> 384; 50 / 101: the Bottleneck's middle
+# 256 -> 256; 34A: 96 -> 64), and for dX and B3 at the training reference
+# batch's 65,536-row level 0
+VARIANT_FORWARD = ((416, 384), (384, 384), (256, 256), (96, 64))
+VARIANT_BACKWARD = ((416, 384), (256, 256))
+# the variants phase: the whole model (a BasicBlock variant) and the
+# backbone alone (a Bottleneck variant, which the model refuses, as JAX's)
+VARIANT_MODEL = "Res16UNet14D"
+VARIANT_BACKBONE = "Res16UNet101"
+VARIANT_CLICKS = 2
+# the reference model block at its default values, as a launch script
+# passes it (agile3d_torch/cli.py)
+REFERENCE_BLOCK = [
+    "--voxel_size", "0.05", "--hidden_dim", "128", "--dim_feedforward",
+    "1024", "--num_heads", "8", "--num_decoders", "3", "--num_bg_queries",
+    "10", "--dropout", "0.0", "--pre_norm", "", "--normalize_pos_enc", "t",
+    "--positional_encoding_type", "fourier", "--gauss_scale", "1.0",
+    "--hlevels", "4", "--shared_decoder", "", "--aux", "t", "--bn_momentum",
+    "0.02", "--conv1_kernel_size", "5", "--dialations", "1", "1", "1", "1",
+    "--decoder_dtype", "float32", "--max_clicks_budget", "256"]
+# a scene that pads to the 786,432-row bucket (~602,000 voxels, the
+# KITTI-360 size) for the eval footprint
+MEMORY_SCENE = dict(num_scenes=1, num_obj=8, n_points=1400000, extent=14.0,
+                    seed=3)
+# the benches' arguments: bench_train's epoch stepping over 2 batches (its
+# default is 4)
+BENCH_ARGS = []
+BENCH_TRAIN_ARGS = ["--batches", "2"]
 
 
 def emit(obj) -> None:
@@ -173,15 +223,10 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
 
 def wall_ms(torch, fn, reps: int = 10) -> float:
     """Median host-clock time of ``fn`` through a synchronize: what a
-    caller waits, launches included."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times)
+    caller waits, launches included (``agile3d_torch.tools.wall_ms``)."""
+    from agile3d_torch.tools import wall_ms as walled
+
+    return walled(fn, torch.device(DEVICE), reps=reps)
 
 
 def percentile(values, q: float) -> float:
@@ -324,8 +369,10 @@ def phase_device(torch, cuda_build):
                     for k, v in reports.items()}})
 
 
-def kernel_cases(eval_pyr, train_pyr):
-    """(kernel, role, level, cin, cout, count) at the main paths' shapes.
+def kernel_cases(eval_pyr, train_pyr, ref_pyr):
+    """(kernel, role, level, cin, cout, count) at the main paths' shapes,
+    then at the variants' new shapes (``ref_pyr``: the training reference
+    batch's pyramid, whose level 0 has 65,536 rows).
     ``count`` is the launches per unit of the role: per eval backbone
     forward for "eval"; per training step for the rest. At each of the two
     finest levels the first block of block8 / block7 takes 128 -> 96 and
@@ -342,6 +389,12 @@ def kernel_cases(eval_pyr, train_pyr):
                   ("banded_conv", "dX", lv, 96, 96, 3),
                   ("banded_conv_dw", "dW", lv, 128, 96, 1),
                   ("banded_conv_dw", "dW", lv, 96, 96, 3)]
+    cases += [("banded_conv", "variant forward", lv, cin, cout, 1)
+              for lv in eval_pyr.levels[:2] for cin, cout in VARIANT_FORWARD]
+    lv = ref_pyr.levels[0]
+    for cin, cout in VARIANT_BACKWARD:
+        cases += [("banded_conv", "variant dX", lv, cout, cin, 1),
+                  ("banded_conv_dw", "variant dW", lv, cin, cout, 1)]
     return cases
 
 
@@ -375,7 +428,7 @@ def phase_kernels(torch, cases):
             # the cotangent of the conv's output: zero on pad rows
             other = torch.randn((n, cout), generator=g, device=DEVICE)
             other[lv.num_valid:] = 0.0
-        elif role == "dX":
+        elif role in ("dX", "variant dX"):
             # as BandedConv's backward calls it: the forward's [k, cout,
             # cin] weights, read as flip(w, 0).transpose(1, 2)
             other = torch.randn((k, cout, cin), generator=g, device=DEVICE) \
@@ -938,9 +991,10 @@ def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
     peval.InteractiveEngine.run_backbone = timed("backbone")
     peval.InteractiveEngine.run_mask = timed("mask")
     device_eval.rollout_rounds = timed("rounds", method=False)
-    argv = ["--scan_folder", scans, "--val_list", val_list, "--seed", "0",
-            "--max_num_clicks", str(MAX_NUM_CLICKS), "--output_dir", out_dir,
-            "--device", DEVICE] + (["--host_rollout"] if host_rollout else [])
+    argv = (["--scan_folder", scans, "--val_list", val_list, "--seed", "0",
+             "--max_num_clicks", str(MAX_NUM_CLICKS), "--output_dir", out_dir,
+             "--device", DEVICE] + REFERENCE_BLOCK
+            + (["--host_rollout"] if host_rollout else []))
     args = eval_multi_obj.get_args_parser().parse_args(argv)
     logged = []
 
@@ -1862,6 +1916,382 @@ def phase_train_device_rollout(torch, scans, train_list, tmp):
                 **probe_launches)
 
 
+def _model_inputs(torch, batch):
+    """(pyramid, feats, raw, sample_idx) of a collated batch on the card."""
+    from agile3d_torch.sparse.grid import to_device
+
+    return (to_device(batch.pyramid, DEVICE),
+            *(torch.from_numpy(a).to(DEVICE)
+              for a in (batch.feats, batch.raw, batch.sample_idx)))
+
+
+def _rel(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want| + 1)."""
+    return (float((got - want).abs().max()), float(want.abs().max()) + 1.0)
+
+
+def phase_variants(torch, batch, scans, val_list, tmp):
+    """The Res16UNet variants at full width on the smoke scene, seeded
+    random weights: VARIANT_MODEL (BasicBlock) through the whole model, one
+    ``forward_backbone`` and one ``forward_mask`` with the kernels on, then
+    off (plain f32 on the card), then ``evaluate_dataset`` through the
+    device rollout; VARIANT_BACKBONE (Bottleneck) as ``Res16UNet`` alone,
+    kernels on and off, and ``Agile3D`` refusing it. B1 launches per
+    forward must be what the routing rule predicts
+    (``models/backbone.py::banded_convs``)."""
+    from agile3d_torch.config import Config, ModelConfig
+    from agile3d_torch.data.datasets import InterMultiObjDataset
+    from agile3d_torch.engine.eval import InteractiveEngine, evaluate_dataset
+    from agile3d_torch.models.agile3d import Agile3D, init_agile3d
+    from agile3d_torch.models.backbone import (
+        backbone_config,
+        banded_convs,
+        init_res16unet,
+    )
+
+    t0 = time.time()
+    n_valid = int((batch.sample_idx[0] >= 0).sum())
+    num_obj = int(batch.num_obj[0])
+    clicks = type(_clicks(torch, batch.labels[0, :n_valid], num_obj))(
+        *(t.to(DEVICE) for t in _clicks(torch, batch.labels[0, :n_valid],
+                                         num_obj)))
+    no = torch.tensor([num_obj], dtype=torch.int32, device=DEVICE)
+    inputs = _model_inputs(torch, batch)
+    pyr, feats = inputs[0], inputs[1]
+    valid0 = [lv.num_valid for lv in batch.pyramid.levels][::-1]
+
+    def fpn_err(got, want):
+        errs = [_rel(g[:n], w[:n]) for g, w, n in zip(got, want, valid0)]
+        return max(e for e, _ in errs), max(m for _, m in errs)
+
+    out = {}
+    # the whole model: a BasicBlock variant
+    mcfg = ModelConfig(backbone=backbone_config(VARIANT_MODEL))
+    model = init_agile3d(mcfg, seed=0, device=DEVICE)
+    bb_cfg = model.backbone.cfg
+    with torch.no_grad():
+        zero_launches()
+        scene = model.forward_backbone(*inputs)
+        masks = model.forward_mask(scene, clicks, no)["pred_masks"][
+            0, :n_valid, :num_obj + 1]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        fpn = model.backbone(pyr, feats)
+        model.backbone.cfg = dataclasses.replace(bb_cfg, banded_conv=False)
+        zero_launches()
+        fpn_plain = model.backbone(pyr, feats)
+        masks_plain = model.forward_mask(model.forward_backbone(*inputs),
+                                         clicks, no)["pred_masks"][
+            0, :n_valid, :num_obj + 1]
+        torch.cuda.synchronize()
+        plain_launches = read_launches()
+        model.backbone.cfg = bb_cfg
+    mask_err, mask_scale = _rel(masks, masks_plain)
+    agree = float((masks.argmax(-1) == masks_plain.argmax(-1)).float().mean())
+    err, scale = fpn_err(fpn, fpn_plain)
+    out[VARIANT_MODEL] = dict(
+        predicted_k3=banded_convs(bb_cfg), launches=launches,
+        plain_launches=plain_launches, fpn_max_abs_err=err, fpn_scale=scale,
+        mask_max_abs_err=mask_err, mask_scale=mask_scale,
+        label_agree=agree,
+        channels=[int(f.shape[1]) for f in fpn])
+    del fpn, fpn_plain, masks, masks_plain, scene
+
+    # evaluate_dataset through the device rollout, kernels on
+    cfg = Config(model=mcfg)
+    engine = InteractiveEngine(cfg, model, DEVICE)
+    csv = os.path.join(tmp, "variant_results.csv")
+    zero_launches()
+    evaluate_dataset(engine, InterMultiObjDataset(scans, val_list,
+                                                  mcfg.voxel_size),
+                     csv, max_num_clicks=VARIANT_CLICKS, seed=0,
+                     log=lambda m: None)
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    rows = [r.split(" ") for r in open(csv).read().strip().split("\n") if r]
+    ious = [float(r[4]) for r in rows]
+    out[VARIANT_MODEL].update(eval_rows=len(rows), eval_final_iou=ious[-1],
+                              eval_launches=eval_launches)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # the backbone alone: a Bottleneck variant
+    bcfg = backbone_config(VARIANT_BACKBONE)
+    net = init_res16unet(bcfg, seed=0, device=DEVICE)
+    with torch.no_grad():
+        zero_launches()
+        fpn = net(pyr, feats)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        net.cfg = dataclasses.replace(bcfg, banded_conv=False)
+        fpn_plain = net(pyr, feats)
+    err, scale = fpn_err(fpn, fpn_plain)
+    try:
+        Agile3D(ModelConfig(backbone=bcfg))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    out[VARIANT_BACKBONE] = dict(
+        predicted_k3=banded_convs(bcfg), launches=launches,
+        fpn_max_abs_err=err, fpn_scale=scale,
+        channels=[int(f.shape[1]) for f in fpn], model_refused=refused)
+    del fpn, fpn_plain, net
+    torch.cuda.empty_cache()
+    emit({"phase": "variants", "rows": batch.pyramid.levels[0].grid.shape[0],
+          "num_valid": n_valid, **out, "seconds": time.time() - t0})
+
+    m, b = out[VARIANT_MODEL], out[VARIANT_BACKBONE]
+    for name, r in out.items():
+        check(r["launches"]["banded_conv"] == r["predicted_k3"],
+              f"{name}: {r['launches']['banded_conv']} k3 launches, the "
+              f"routing rule predicts {r['predicted_k3']}")
+        check(r["launches"]["banded_stem"] == 1,
+              f"{name}: {r['launches']['banded_stem']} stem launches")
+        check(r["fpn_max_abs_err"] <= 5e-2 * r["fpn_scale"],
+              f"{name}: FPN kernels vs plain {r['fpn_max_abs_err']} > 5e-2 x "
+              f"{r['fpn_scale']}")
+    check(m["plain_launches"]["banded_conv"] == 0
+          and m["plain_launches"]["banded_stem"] == 0,
+          f"{VARIANT_MODEL}: a kernel ran with the kernels off")
+    check(m["mask_max_abs_err"] <= 5e-2 * m["mask_scale"],
+          f"{VARIANT_MODEL}: masks kernels vs plain {m['mask_max_abs_err']}")
+    check(m["label_agree"] >= 0.99,
+          f"{VARIANT_MODEL}: labels agree {m['label_agree']}")
+    check(m["eval_rows"] > 1 and all(math.isfinite(v) and 0 <= v <= 1
+                                     for v in ious),
+          f"{VARIANT_MODEL}: eval rows {m['eval_rows']}, IoUs {ious[:5]}")
+    check(m["eval_launches"]["banded_conv"] == m["predicted_k3"]
+          and m["eval_launches"]["boundary_distances_all"] > 0,
+          f"{VARIANT_MODEL}: eval launches {m['eval_launches']}")
+    check("lin_squeeze" in b["model_refused"],
+          f"Agile3D did not refuse {VARIANT_BACKBONE}: {b['model_refused']}")
+    return {"banded_conv": m["launches"]["banded_conv"]
+            + m["eval_launches"]["banded_conv"] + b["launches"]["banded_conv"],
+            "banded_stem": m["launches"]["banded_stem"]
+            + m["eval_launches"]["banded_stem"] + b["launches"]["banded_stem"],
+            "boundary_distances_all":
+                m["eval_launches"]["boundary_distances_all"]}
+
+
+def phase_oversize(torch, scans, val_list, tmp):
+    """``python -m agile3d_torch.eval_multi_obj`` (in process) with the
+    memory budget pinned at 0.01 GiB (``AGILE3D_HBM_GIB``): it must exit
+    non-zero with one ``error:`` line, before any kernel launch."""
+    from agile3d_torch import eval_multi_obj
+    from agile3d_torch.cli import run
+
+    argv = ["--scan_folder", scans, "--val_list", val_list, "--seed", "0",
+            "--output_dir", os.path.join(tmp, "oversize"), "--device",
+            DEVICE] + REFERENCE_BLOCK
+    err = io.StringIO()
+    os.environ["AGILE3D_HBM_GIB"] = "0.01"
+    code = None
+    try:
+        zero_launches()
+        with contextlib.redirect_stderr(err):
+            run(eval_multi_obj.get_args_parser(), eval_multi_obj.main, argv)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        del os.environ["AGILE3D_HBM_GIB"]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lines = err.getvalue().strip().splitlines()
+    emit({"phase": "oversize", "exit_code": code, "stderr": lines,
+          "launches": launches})
+    check(code not in (None, 0), f"the over-budget run exited {code}")
+    check(len(lines) == 1 and lines[0].startswith("error: scene pads to"),
+          f"the over-budget run's stderr: {lines}")
+    check(not any(launches.values()),
+          f"kernels launched before the guard: {launches}")
+    return launches
+
+
+def phase_memory(torch, batch, tmp):
+    """The eval footprint: the peak device memory of one eval
+    ``forward_backbone`` and one ``forward_mask`` at full width, less what
+    the process held before the model was built (earlier phases' leftovers),
+    so the model's weights, the inputs and the passes' tensors; at the smoke
+    scene's bucket and at a scene that pads to the 786,432-row bucket,
+    against the oversize guard's estimate (``utils/costs.py::
+    eval_hbm_gib``)."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
+    from agile3d_torch.data.synthetic import write_benchmark
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.utils.costs import (
+        EVAL_BYTES_PER_ROW,
+        SINGLE_CHIP_HBM_GIB,
+        eval_hbm_gib,
+    )
+
+    t0 = time.time()
+    cfg = Config()
+    scans, val_list = write_benchmark(os.path.join(tmp, "memory"),
+                                      **MEMORY_SCENE)
+    prep = time.time()
+    big = collate_scenes(
+        [InterMultiObjDataset(scans, val_list, cfg.model.voxel_size)[0]],
+        cfg.buckets)
+    prep_s = time.time() - prep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = init_agile3d(cfg.model, seed=0, device=DEVICE)
+    weights = torch.cuda.memory_allocated() - before
+    rows = {}
+    for name, b in (("smoke", batch), ("kitti", big)):
+        n_valid = int((b.sample_idx[0] >= 0).sum())
+        num_obj = int(b.num_obj[0])
+        clicks = type(_clicks(torch, b.labels[0, :n_valid], num_obj))(
+            *(t.to(DEVICE) for t in _clicks(torch, b.labels[0, :n_valid],
+                                             num_obj)))
+        no = torch.tensor([num_obj], dtype=torch.int32, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            inputs = _model_inputs(torch, b)
+            scene = model.forward_backbone(*inputs)
+            out = model.forward_mask(scene, clicks, no)
+            finite_ok = bool(torch.isfinite(
+                out["pred_masks"][0, :n_valid, :num_obj + 1]).all())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        n = b.pyramid.levels[0].grid.shape[0]
+        rows[name] = dict(rows=n, num_valid=n_valid,
+                          process_peak_gib=peak / 2 ** 30,
+                          footprint_gib=(peak - before) / 2 ** 30,
+                          above_weights_gib=(peak - base) / 2 ** 30,
+                          footprint_bytes_per_row=(peak - before) / n,
+                          estimate_gib=eval_hbm_gib(n), finite=finite_ok)
+        del inputs, scene, out
+    del model
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "memory", "card": nvidia_smi(),
+          "total_memory_gib": total / 2 ** 30,
+          "single_chip_hbm_gib": SINGLE_CHIP_HBM_GIB,
+          "eval_bytes_per_row": EVAL_BYTES_PER_ROW,
+          "held_before_gib": before / 2 ** 30, "weights_gib": weights / 2 ** 30,
+          **rows,
+          "prep_s": prep_s, "seconds": time.time() - t0})
+    check(rows["kitti"]["rows"] == 786432,
+          f"the memory scene pads to {rows['kitti']['rows']} rows")
+    for name, r in rows.items():
+        check(r["finite"], f"memory ({name}): non-finite masks")
+        check(r["estimate_gib"] >= r["footprint_gib"],
+              f"memory ({name}): the guard's estimate {r['estimate_gib']} "
+              f"GiB is under the measured footprint {r['footprint_gib']} GiB")
+    check(SINGLE_CHIP_HBM_GIB <= total / 2 ** 30,
+          f"SINGLE_CHIP_HBM_GIB {SINGLE_CHIP_HBM_GIB} > the card's "
+          f"{total / 2 ** 30} GiB")
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_benches(torch):
+    """``python -m agile3d_torch.bench`` and ``... bench_train`` (in
+    process): each prints one JSON line, whose numbers must be finite, and
+    whose runs launch the kernels as the paths predict: 8 k3 + 1 stem per
+    eval backbone forward; 16 k3 (8 forward, 8 dX) + 8 dW per supervised
+    step (the training epoch's 24 k3 add the rollout's no-gradient
+    backbone, which the bench's fixed click table skips)."""
+    from agile3d_torch import bench, bench_train
+
+    t0 = time.time()
+    lines, launches = {}, {}
+    for name, mod, argv in (("bench", bench, BENCH_ARGS),
+                            ("bench_train", bench_train, BENCH_TRAIN_ARGS)):
+        buf = io.StringIO()
+        zero_launches()
+        with contextlib.redirect_stdout(buf):
+            mod.main(mod.get_args_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        lines[name] = _last_json(buf.getvalue())
+        print(buf.getvalue(), end="", flush=True)
+    b, t = lines["bench"], lines["bench_train"]
+    calls = b["raw"]["backbone"]["calls"]
+    steps = t["breakdown"]["steps"]
+    emit({"phase": "benches", "launches": launches,
+          "bench_value_ms": b["value"], "bench_train_value": t["value"],
+          "seconds": time.time() - t0})
+
+    def all_finite(obj):
+        if isinstance(obj, dict):
+            return all(all_finite(v) for v in obj.values())
+        if isinstance(obj, list):
+            return all(all_finite(v) for v in obj)
+        return not isinstance(obj, float) or math.isfinite(obj)
+
+    for name, line in lines.items():
+        check(all_finite(line), f"{name}: a number is not finite")
+    check(b["metric"] == "per_click_forward_mask_p50_latency"
+          and b["value"] > 0 and "mfu" in b["roofline"]["forward_mask"],
+          f"bench line: {b}")
+    check(b["raw"]["backbone"]["launches"] == {"banded_conv": 8,
+                                               "banded_stem": 1},
+          f"bench: launches per backbone {b['raw']['backbone']['launches']}")
+    check(launches["bench"]["banded_conv"] == 8 * calls
+          and launches["bench"]["banded_stem"] == calls,
+          f"bench: {launches['bench']} over {calls} backbone forwards")
+    check(t["metric"] == "train_scenes_per_sec_per_chip" and t["value"] > 0
+          and "mfu" in t["roofline"], f"bench_train line: {t}")
+    check(t["breakdown"]["launches_per_step"] == {"banded_conv": 16,
+                                                  "banded_conv_dw": 8},
+          f"bench_train: launches per step "
+          f"{t['breakdown']['launches_per_step']}")
+    check(launches["bench_train"]["banded_conv"] == 16 * steps
+          and launches["bench_train"]["banded_conv_dw"] == 8 * steps,
+          f"bench_train: {launches['bench_train']} over {steps} steps")
+    return launches, lines
+
+
+def kernel_meta():
+    """Per kernel of the port: (source, the TPU kernel or XLA fusion it
+    replaces, the rows' roles that its times sum, the unit of those
+    times)."""
+    # launches: each path's runs (counts zeroed just before each, read just
+    # after); the times: the training step's work for the k3 kernel and
+    # dW, one eval backbone forward for the stem; for the window kernel the
+    # eval backbone's eight k3 convs in banded_conv's place, for the row
+    # gather the TPU probe's shape from both tables, for the boundary
+    # distance one eval round
+    return {
+        "banded_conv": ("agile3d_torch/csrc/banded_conv.cu",
+                        tpu_kernel("banded_conv.py", "_make_kernel"),
+                        ("train forward", "dX"), "one training step"),
+        "banded_stem": ("agile3d_torch/csrc/banded_stem.cu",
+                        tpu_kernel("banded_stem.py", "_make_stem_kernel"),
+                        ("eval",), "one eval backbone forward"),
+        "banded_conv_dw": ("agile3d_torch/csrc/banded_conv.cu",
+                           tpu_kernel("banded_conv.py", "_make_dw_kernel"),
+                           ("dW",), "one training step"),
+        "banded_window_conv": (
+            "agile3d_torch/csrc/banded_window.cu",
+            tpu_kernel("probe_banded_kernel.py", "make_banded_conv"),
+            ("eval shapes",),
+            "one eval backbone forward's k3 convs, in banded_conv's place"),
+        "smem_row_gather": (
+            "agile3d_torch/csrc/row_gather.cu",
+            tpu_kernel("probe_vmem_gather.py", "gather_kernel"),
+            ("probe shape",),
+            "27 x 1024 rows from a 384 x 128 and from a 4,096 x 128 f32 "
+            "table"),
+        "boundary_distances_all": (
+            "agile3d_torch/csrc/boundary_dist.cu",
+            tpu_kernel("device_eval.py", "_boundary_distances_all"),
+            ("eval round",),
+            "one eval round of the smoke scene (an XLA fusion's "
+            "counterpart, not a Pallas kernel's; no library call computes "
+            "it)"),
+    }
+
+
 def _summary(rows, roles):
     """Sums over the rows of ``roles``, each weighted by its count."""
     mine = [r for r in rows if r["role"] in roles]
@@ -1913,65 +2343,48 @@ def main():
                                         cfg.model.voxel_size)
         train_batch = collate_scenes(
             [train_ds[i] for i in range(TRAIN_BATCH)], cfg.buckets)
+        ref_scans, ref_list = write_benchmark(os.path.join(tmp, "kref"),
+                                              **TRAIN_REF_SCENES)
+        ref_ds = InterMultiObjDataset(ref_scans, ref_list,
+                                      cfg.model.voxel_size)
+        ref_pyr = collate_scenes([ref_ds[i] for i in range(len(ref_ds))],
+                                 cfg.buckets).pyramid
         eval_dev = to_device(eval_batch.pyramid, DEVICE)
         shapes = phase_kernels(torch, kernel_cases(
-            eval_dev, to_device(train_batch.pyramid, DEVICE)))
+            eval_dev, to_device(train_batch.pyramid, DEVICE),
+            to_device(ref_pyr, DEVICE)))
         shapes += phase_distances(torch, distance_cases(eval_batch,
                                                         train_batch))
         probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
                                                   eval_dev)
         phase_decoder(torch, eval_batch)
-        del eval_batch, eval_dev, train_batch, train_ds
+        del eval_dev, train_batch, train_ds, ref_ds, ref_pyr
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
         phase_train_reference(torch, tmp)
         eval_launches = phase_main_path(torch, scans, val_list,
                                         os.path.join(tmp, "out"))
+        oversize_launches = phase_oversize(torch, scans, val_list, tmp)
         single_launches = phase_single(torch, scans, tmp)
         serve_launches = phase_serve(torch, scans, tmp)
+        variant_launches = phase_variants(torch, eval_batch, scans, val_list,
+                                          tmp)
+        phase_memory(torch, eval_batch, tmp)
+        del eval_batch
         host_train = phase_train_main_path(torch, train_scans, train_list,
                                            tmp)
         device_train = phase_train_device_rollout(torch, train_scans,
                                                   train_list, tmp)
+        bench_launches, _ = phase_benches(torch)
 
-    # launches: each path's runs (counts zeroed just before each, read just
-    # after); the times: the training step's work for the k3 kernel and
-    # dW, one eval backbone forward for the stem; for the window kernel the
-    # eval backbone's eight k3 convs in banded_conv's place, for the row
-    # gather the TPU probe's shape from both tables, for the boundary
-    # distance one eval round
-    meta = {
-        "banded_conv": ("agile3d_torch/csrc/banded_conv.cu",
-                        tpu_kernel("banded_conv.py", "_make_kernel"),
-                        ("train forward", "dX"), "one training step"),
-        "banded_stem": ("agile3d_torch/csrc/banded_stem.cu",
-                        tpu_kernel("banded_stem.py", "_make_stem_kernel"),
-                        ("eval",), "one eval backbone forward"),
-        "banded_conv_dw": ("agile3d_torch/csrc/banded_conv.cu",
-                           tpu_kernel("banded_conv.py", "_make_dw_kernel"),
-                           ("dW",), "one training step"),
-        "banded_window_conv": (
-            "agile3d_torch/csrc/banded_window.cu",
-            tpu_kernel("probe_banded_kernel.py", "make_banded_conv"),
-            ("eval shapes",),
-            "one eval backbone forward's k3 convs, in banded_conv's place"),
-        "smem_row_gather": (
-            "agile3d_torch/csrc/row_gather.cu",
-            tpu_kernel("probe_vmem_gather.py", "gather_kernel"),
-            ("probe shape",),
-            "27 x 1024 rows from a 384 x 128 and from a 4,096 x 128 f32 "
-            "table"),
-        "boundary_distances_all": (
-            "agile3d_torch/csrc/boundary_dist.cu",
-            tpu_kernel("device_eval.py", "_boundary_distances_all"),
-            ("eval round",),
-            "one eval round of the smoke scene (an XLA fusion's "
-            "counterpart, not a Pallas kernel's; no library call computes "
-            "it)"),
-    }
+    meta = kernel_meta()
     paths = {"probe": probe_launches, "eval": eval_launches,
+             "eval_oversize": oversize_launches,
              "single": single_launches, "serve": serve_launches,
-             "train": host_train, "train_device_rollout": device_train}
+             "variants": variant_launches,
+             "train": host_train, "train_device_rollout": device_train,
+             "bench": bench_launches["bench"],
+             "bench_train": bench_launches["bench_train"]}
     kernels = []
     for name, (source, replaces, roles, unit) in meta.items():
         mine = [r for r in shapes + probe_rows if r["kernel"] == name]
@@ -1989,6 +2402,14 @@ def main():
             entry["max_abs_err"] = max(entry["max_abs_err"], ev["max_abs_err"])
             entry["per_eval_forward"] = {k: ev[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "shapes")}
+        variant = [r for r in mine if r["role"].startswith("variant")]
+        if variant:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in variant))
+            entry["variant_shapes"] = [{k: r[k] for k in (
+                "role", "rows", "cin", "cout", "max_abs_err", "tol", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for r in variant]
         if name == "banded_stem":
             entry["prep_ms"] = sum(r["prep_ms"] * r["count"] for r in mine)
         if name == "banded_window_conv":

@@ -179,3 +179,65 @@ def test_chunks_seen_counts_each_decoder_call_and_restores():
         for _ in range(2):
             model.forward_mask(scene, clicks, torch.tensor([1]))
     assert seen == {0: 2} and Agile3D.forward_mask is orig
+
+
+def test_kernels_line_lists_all_six_kernels():
+    """Every kernel wrapper has its line entry, with the file it replaces,
+    and main() drives the new phases and reports their launches."""
+    import inspect
+
+    meta = chip_smoke.kernel_meta()
+    assert sorted(meta) == sorted(chip_smoke.kernel_wrappers()) == sorted([
+        "banded_conv", "banded_conv_dw", "banded_stem", "banded_window_conv",
+        "smem_row_gather", "boundary_distances_all"])
+    for source, replaces, roles, unit in meta.values():
+        assert os.path.exists(os.path.join(ROOT, source))
+        assert ":" in replaces and roles and unit
+    main = inspect.getsource(chip_smoke.main)
+    for phase in ("phase_variants", "phase_oversize", "phase_memory",
+                  "phase_benches", "phase_main_path", "phase_kernels"):
+        assert callable(getattr(chip_smoke, phase))
+        assert f"{phase}(" in main
+    for path in ('"variants"', '"eval_oversize"', '"bench"',
+                 '"bench_train"'):
+        assert path in main
+
+
+def test_main_path_passes_the_reference_block_at_its_defaults():
+    from agile3d_torch import eval_multi_obj
+    from agile3d_torch.cli import model_config_from_args
+    from agile3d_torch.config import ModelConfig
+
+    args = eval_multi_obj.get_args_parser().parse_args(
+        ["--scan_folder", "s", "--val_list", "v"]
+        + chip_smoke.REFERENCE_BLOCK)
+    cfg = model_config_from_args(args, max_clicks=args.max_clicks_budget,
+                                 decoder_dtype=args.decoder_dtype)
+    assert cfg == ModelConfig()
+    assert "--max_clicks_budget" in chip_smoke.REFERENCE_BLOCK
+    assert "--decoder_dtype" in chip_smoke.REFERENCE_BLOCK
+
+
+def test_kernel_cases_hold_the_variants_shapes():
+    """B1 forward at the variants' four shapes on both finest eval levels,
+    dX and B3 at two of them on the training reference batch's level 0."""
+    from types import SimpleNamespace
+
+    level = lambda n: SimpleNamespace(rows=n)
+    pyr = lambda *ns: SimpleNamespace(levels=[level(n) for n in ns])
+    cases = chip_smoke.kernel_cases(pyr(196608, 49152), pyr(524288, 98304),
+                                    pyr(65536, 16384))
+    variant = [(name, role, lv.rows, cin, cout)
+               for name, role, lv, cin, cout, _ in cases
+               if role.startswith("variant")]
+    fwd = [(n, ci, co) for _, role, n, ci, co in variant
+           if role == "variant forward"]
+    assert fwd == [(n, ci, co) for n in (196608, 49152)
+                   for ci, co in ((416, 384), (384, 384), (256, 256),
+                                  (96, 64))]
+    assert [(name, role, n, ci, co) for name, role, n, ci, co in variant
+            if role != "variant forward"] == [
+        ("banded_conv", "variant dX", 65536, 384, 416),
+        ("banded_conv_dw", "variant dW", 65536, 416, 384),
+        ("banded_conv", "variant dX", 65536, 256, 256),
+        ("banded_conv_dw", "variant dW", 65536, 256, 256)]

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from agile3d_torch import run_ui
+from agile3d_torch.cli import device_arg
 from agile3d_torch.config import Config as PortConfig
 from agile3d_torch.interactive import InteractiveDataLoader
 from agile3d_torch.interactive import InteractiveSegmentationServer
@@ -348,7 +349,8 @@ def test_terminal_repl(f32_servers):
 def test_run_ui_defaults(scene_dir):
     args = run_ui.get_args_parser().parse_args(
         ["--dataset_scenes", scene_dir])
-    assert args.device == "cuda" and args.decoder_dtype == "bfloat16"
+    # the reference's --device default "" means the card, as "cuda" does
+    assert device_arg(args) == "cuda" and args.decoder_dtype == "bfloat16"
     assert not args.terminal and args.port == 8008
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

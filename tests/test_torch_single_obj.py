@@ -21,6 +21,7 @@ import torch
 import compute_ap as jax_compute_ap
 from agile3d_torch import compute_ap as port_compute_ap
 from agile3d_torch import eval_single_obj
+from agile3d_torch.cli import device_arg
 from agile3d_torch.config import Config as PortConfig
 from agile3d_torch.data import datasets as pdata
 from agile3d_torch.engine import device_eval as pdev
@@ -231,7 +232,8 @@ def test_entry_point_on_cpu(rollouts, monkeypatch, tmp_path):
 def test_entry_points_default_to_the_card():
     args = eval_single_obj.get_args_parser().parse_args(
         ["--scan_folder", "s", "--val_list", "v"])
-    assert args.device == "cuda" and not args.host_rollout
+    # the reference's --device default "" means the card, as "cuda" does
+    assert device_arg(args) == "cuda" and not args.host_rollout
     assert eval_single_obj.build_config(args).model.max_clicks == 64
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
