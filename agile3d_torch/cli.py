@@ -20,10 +20,10 @@ import sys
 
 from agile3d_torch.config import BackboneConfig, ModelConfig
 
-# the JAX entry points' flags that the port does not take yet: checkpoints
-# and resume (queue A item 9) and the parallel paths (item 10)
+# the JAX entry points' flags that the port does not take yet: the
+# parallel paths (queue A item 10)
 NOT_PORTED = {
-    "main": ("--resume", "--start_epoch", "--ckpt_epochs", "--num_dp"),
+    "main": ("--num_dp",),
     "eval_multi_obj": ("--sp", "--sp_backbone", "--scene_parallel"),
 }
 

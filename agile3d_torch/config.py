@@ -10,8 +10,7 @@ loop's prefetch depth. The TPU implementation knobs (scan_blocks,
 factored_conv, strip_conv, stem_zdilated) are not fields here: each
 selects a TPU layout of the same conv function (a scan over stacked
 blocks, two-stage or strip gathers, a z-dilated stem), and the port's convs
-are the plain gather-GEMM or the banded CUDA kernels. ``backbone_dtype``
-is not ported yet: the backbone runs in float32 outside the kernels.
+are the plain gather-GEMM or the banded CUDA kernels.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ class ModelConfig:
     num_heads: int = 8
     num_decoders: int = 3
     num_bg_queries: int = 10
-    dropout: float = 0.0                # > 0 is not ported yet
+    dropout: float = 0.0                # decoder dropout, training only
     pre_norm: bool = False
     normalize_pos_enc: bool = True
     positional_encoding_type: str = "fourier"
@@ -73,6 +72,10 @@ class ModelConfig:
     # at least 6 chunks (models/agile3d.py::_pick_attn_chunk); 0 = dense.
     attn_chunk: int = 32768
     attn_dense_threshold: int = 10_000_000
+    # "bfloat16": the backbone's features and weights in bf16, promoted as
+    # the JAX package's backbone_forward(compute_dtype=bfloat16) promotes
+    # (models/backbone.py); lin_squeeze reads the stride-1 map in f32.
+    backbone_dtype: str = "float32"
     # "bfloat16": decoder weights and the scene's mask features and
     # positional encodings in bf16, promoted to f32 where the JAX package's
     # are; the mask logits stay f32. The serving default (run_ui.py).

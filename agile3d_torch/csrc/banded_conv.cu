@@ -288,16 +288,18 @@ int dispatch_dw(const __nv_bfloat16* xb, const int32_t* nbr,
 
 }  // namespace
 
-// x [n, cin] f32, nbr [n, k] i32, w [k, cin, cout] f32 (with `flip`: a
-// forward's [k, cout, cin], used as flip(w, 0).transpose(1, 2)), y [n, cout]
-// f32; scratch xb [n, cinp] bf16 with cinp a multiple of 16 and >= cin, and
-// wimg, the weights' image: ceil(cout / bn) * k * ceil(cinp / 64) * bn * 64
-// bf16 with bn = conv_tile_n(cout). All contiguous on the current device.
-// Returns the CUDA error of the launches (0 = launched).
+// x [n, cin] f32 or bf16 (`x_bf16`), nbr [n, k] i32, w [k, cin, cout] f32
+// or bf16 (`w_bf16`; with `flip`: a forward's [k, cout, cin], used as
+// flip(w, 0).transpose(1, 2)), y [n, cout] f32; scratch xb [n, cinp] bf16
+// with cinp a multiple of 16 and >= cin, and wimg, the weights' image:
+// ceil(cout / bn) * k * ceil(cinp / 64) * bn * 64 bf16 with bn =
+// conv_tile_n(cout). All contiguous on the current device. Returns the
+// CUDA error of the launches (0 = launched).
 extern "C" int agile3d_banded_conv(const void* x, const void* nbr,
                                    const void* w, void* y, void* xb, void* wimg,
                                    int n, int k, int cin, int cinp, int cout,
-                                   int flip, void* stream_ptr) {
+                                   int flip, int x_bf16, int w_bf16,
+                                   void* stream_ptr) {
   if (cinp % 16 != 0 || cinp < cin || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -306,8 +308,8 @@ extern "C" int agile3d_banded_conv(const void* x, const void* nbr,
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
   auto* wip = static_cast<__nv_bfloat16*>(wimg);
   const int nsl = (cinp + 63) / 64;
-  const int rc = cast_conv_operands(static_cast<const float*>(x), static_cast<const float*>(w),
-                                    xbp, wip, n, k, cin, cinp, cout, flip, stream);
+  const int rc = cast_conv_operands(x, x_bf16, w, w_bf16, xbp, wip, n, k, cin, cinp,
+                                    cout, flip, stream);
   if (rc != 0) return rc;
   int s = 1;
   while ((s + 1) * (s + 1) * (s + 1) <= k) ++s;
@@ -316,7 +318,8 @@ extern "C" int agile3d_banded_conv(const void* x, const void* nbr,
                        n, k, cinp, cout, nsl, kg, stream);
 }
 
-// x [n, cin] f32, nbr [n, k] i32, g [n, cout] f32, dw [k, cin, cout] f32;
+// x [n, cin] f32 or bf16 (`x_bf16`), nbr [n, k] i32, g [n, cout] f32 or
+// bf16 (`g_bf16`), dw [k, cin, cout] f32;
 // scratch xb [n, cinp] bf16 (cinp a multiple of 8, >= cin), gimg, the image
 // of g: ceil(n / 64) * 64 * ceil(cout / bn) * ceil(bn / 64) * 64 bf16 with
 // bn = dw_tile_n(cout), and part [ceil(n / chunk), k, cin, cout] f32, with
@@ -326,7 +329,7 @@ extern "C" int agile3d_banded_conv_dw(const void* x, const void* nbr,
                                       const void* g, void* dw, void* xb,
                                       void* gimg, void* part, int n, int k,
                                       int cin, int cinp, int cout, int chunk,
-                                      void* stream_ptr) {
+                                      int x_bf16, int g_bf16, void* stream_ptr) {
   if (cinp % 8 != 0 || cinp < cin || k <= 0 || chunk % DW_KR != 0
       || chunk <= 0 || chunk > DW_CHUNK) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -343,11 +346,16 @@ extern "C" int agile3d_banded_conv_dw(const void* x, const void* nbr,
   const int bn = dw_tile_n(cout);
   const int na = (bn + 63) / 64;
   const int otiles = (cout + bn - 1) / bn;
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(
-      static_cast<const float*>(x), xbp, n, cin, cinp);
-  cast_row_image_kernel<<<grid_for((int64_t)(n + 63) / 64 * otiles * na * 512), 256,
-                          0, stream>>>(static_cast<const float*>(g), gip, n, cout,
-                                       bn, na, otiles);
+  with_dtype(x, x_bf16, [&](auto xp) {
+    cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(xp, xbp, n, cin,
+                                                                         cinp);
+    return 0;
+  });
+  with_dtype(g, g_bf16, [&](auto gp) {
+    cast_row_image_kernel<<<grid_for((int64_t)(n + 63) / 64 * otiles * na * 512), 256, 0,
+                            stream>>>(gp, gip, n, cout, bn, na, otiles);
+    return 0;
+  });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* pp = static_cast<float*>(part);

@@ -82,21 +82,24 @@ static_assert(STAGES % SCONS == 0, "each stage belongs to one consumer");
 // the bf16 image element kk of column o: K index kk = 16 s + p is offset
 // 4 s + t, channel c, where p < 8 is the A fragment's column 2t + c and
 // p >= 8 its column 2t + 8 + (c - 2)
-__device__ __forceinline__ float stem_weight(const float* __restrict__ w, int kk,
+template <class T>
+__device__ __forceinline__ float stem_weight(const T* __restrict__ w, int kk,
                                              int o, int cout) {
   const int s = kk >> 4;
   const int p = kk & 15;
   const int t = (p & 7) >> 1;
   const int c = (p >> 3) * 2 + (p & 1);
   const int j = 4 * s + t;
-  return j < KVOL && c < CIN && o < cout ? w[(j * CIN + c) * cout + o] : 0.f;
+  return j < KVOL && c < CIN && o < cout ? to_f32(w[(j * CIN + c) * cout + o]) : 0.f;
 }
 
 // xb[r] = bf16(x[r, 0..2]), 0 for r < n, and xb[n] = 0 (absent neighbours);
 // wimg: per column tile and 64-wide K atom a, [32 columns][128 bytes] with
-// each column's 16-byte pieces swizzled (K-major B of wgmma)
-__global__ void stem_prep_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
+// each column's 16-byte pieces swizzled (K-major B of wgmma); x and w each
+// f32 or bf16
+template <class TX, class TW>
+__global__ void stem_prep_kernel(const TX* __restrict__ x,
+                                 const TW* __restrict__ w,
                                  uint2* __restrict__ xb,
                                  __nv_bfloat16* __restrict__ wimg, int n,
                                  int cout, int ntiles) {
@@ -125,7 +128,7 @@ __global__ void stem_prep_kernel(const float* __restrict__ x,
       float v[3] = {0.f, 0.f, 0.f};
       if (r < n) {
 #pragma unroll
-        for (int c = 0; c < CIN; ++c) v[c] = x[r * CIN + c];
+        for (int c = 0; c < CIN; ++c) v[c] = to_f32(x[r * CIN + c]);
       }
       const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], 0.f);
@@ -257,19 +260,24 @@ banded_stem_kernel(const uint2* __restrict__ xb, const int32_t* __restrict__ k5,
 
 }  // namespace
 
-// The prep pass: x [n, 3] f32 and w [125, 3, cout] f32 into xb [n + 1, 4]
-// bf16 and wimg, the weight image: ceil(cout / 32) * 512 * 32 bf16. All
-// contiguous on the current device. Returns the CUDA error of the launch
-// (0 = launched).
+// The prep pass: x [n, 3] and w [125, 3, cout], each f32 or bf16 (`x_bf16`,
+// `w_bf16`), into xb [n + 1, 4] bf16 and wimg, the weight image:
+// ceil(cout / 32) * 512 * 32 bf16. All contiguous on the current device.
+// Returns the CUDA error of the launch (0 = launched).
 extern "C" int agile3d_banded_stem_prep(const void* x, const void* w, void* xb,
-                                        void* wimg, int n, int cout,
-                                        void* stream_ptr) {
+                                        void* wimg, int n, int cout, int x_bf16,
+                                        int w_bf16, void* stream_ptr) {
   if (n <= 0 || cout <= 0) return 0;
   const int ctiles = (cout + BN - 1) / BN;
   const int64_t total = (int64_t)ctiles * (KSTEPS / 4) * BN * 8 + n + 1;
-  stem_prep_kernel<<<grid_for(total), 256, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<uint2*>(xb),
-      static_cast<__nv_bfloat16*>(wimg), n, cout, ctiles);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  with_dtype(x, x_bf16, [&](auto xp) {
+    return with_dtype(w, w_bf16, [&](auto wp) {
+      stem_prep_kernel<<<grid_for(total), 256, 0, stream>>>(
+          xp, wp, static_cast<uint2*>(xb), static_cast<__nv_bfloat16*>(wimg), n, cout, ctiles);
+      return 0;
+    });
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

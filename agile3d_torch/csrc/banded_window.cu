@@ -65,8 +65,7 @@ extern "C" int agile3d_banded_window(const void* x, const void* nbr,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
   auto* wip = static_cast<__nv_bfloat16*>(wimg);
-  const int rc = cast_conv_operands(static_cast<const float*>(x), static_cast<const float*>(w),
-                                    xbp, wip, n, k, cin, cinp, cout, 0, stream);
+  const int rc = cast_conv_operands(x, 0, w, 0, xbp, wip, n, k, cin, cinp, cout, 0, stream);
   if (rc != 0) return rc;
   const PlanWindows plan{static_cast<const int32_t*>(start), static_cast<const int32_t*>(length),
                          static_cast<const int32_t*>(order), static_cast<const int32_t*>(bounds),

@@ -59,30 +59,52 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// An operand element as float: the operand casts read x, w and g in f32 or
+// bf16 (a bf16 value casts back to itself, so a bf16 operand gives the
+// same image as its values in f32)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// eight consecutive elements from a 16-byte aligned address
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
 // xb[r, c] = bf16(x[r, c]) for c < cin, 0 for cin <= c < cinp (cinp a
-// multiple of 8): each thread casts 8 channels of one row and stores them
-// as one 16-byte piece
-__global__ void cast_rows_kernel(const float* __restrict__ x,
+// multiple of 8), x f32 or bf16: each thread casts 8 channels of one row
+// and stores them as one 16-byte piece
+template <class T>
+__global__ void cast_rows_kernel(const T* __restrict__ x,
                                  __nv_bfloat16* __restrict__ xb, int64_t n,
                                  int cin, int cinp) {
   const int per_row = cinp / 8;
   const int64_t total = n * per_row;
-  // rows 32-byte aligned: two float4 loads
+  // every row's 8-channel pieces 16-byte aligned: one vector load each
   const bool vec = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
     const int64_t r = e / per_row;
     const int c0 = static_cast<int>(e - r * per_row) * 8;
-    const float* src = x + r * cin + c0;
+    const T* src = x + r * cin + c0;
     float v[8];
     if (vec && c0 < cin) {
-      const float4 a = *reinterpret_cast<const float4*>(src);
-      const float4 b = *reinterpret_cast<const float4*>(src + 4);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+      load8(src, v);
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = c0 + i < cin ? src[i] : 0.f;
+      for (int i = 0; i < 8; ++i) v[i] = c0 + i < cin ? to_f32(src[i]) : 0.f;
     }
     uint4 out;
     uint32_t* o = reinterpret_cast<uint32_t*>(&out);
@@ -95,19 +117,11 @@ __global__ void cast_rows_kernel(const float* __restrict__ x,
   }
 }
 
-// wt[j, o, c] = bf16(w[j, c, o]) for c < cin, 0 for cin <= c < cinp
-__global__ void cast_weights_kernel(const float* __restrict__ w,
-                                    __nv_bfloat16* __restrict__ wt, int k,
-                                    int cin, int cinp, int cout) {
-  const int64_t total = (int64_t)k * cout * cinp;
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t jo = e / cinp;
-    const int c = static_cast<int>(e - jo * cinp);
-    const int64_t j = jo / cout;
-    const int o = static_cast<int>(jo - j * cout);
-    wt[e] = __float2bfloat16_rn(c < cin ? w[(j * cin + c) * cout + o] : 0.f);
-  }
+// f(p) with p the operand's pointer as float or bf16 (`bf16` says which)
+template <class F>
+int with_dtype(const void* p, int bf16, F&& f) {
+  return bf16 ? f(static_cast<const __nv_bfloat16*>(p))
+              : f(static_cast<const float*>(p));
 }
 
 // blocks of 256 threads for a grid-stride pass over `total` elements
@@ -567,8 +581,9 @@ __device__ __forceinline__ void ring_release(const Ring& ring, int s, int wtid) 
 // columns] transposed to [bn][64] (K-major), each 128-byte row swizzled,
 // zero past cin and cout. With `flip`, w is a forward's [k][cout][cin]
 // weights and the image is that of flip(w, 0).transpose(1, 2), the
-// weights of its dX conv.
-__global__ void cast_weight_image_kernel(const float* __restrict__ w,
+// weights of its dX conv. w f32 or bf16.
+template <class T>
+__global__ void cast_weight_image_kernel(const T* __restrict__ w,
                                          __nv_bfloat16* __restrict__ img,
                                          int k, int cin, int cout, int bn,
                                          int nsl, int ntiles, int flip) {
@@ -589,8 +604,8 @@ __global__ void cast_weight_image_kernel(const float* __restrict__ w,
     for (int i = 0; i < 8; ++i) {
       const int c = c0 + i;
       v[i] = o >= cout || c >= cin ? 0.f
-             : flip ? w[((int64_t)(k - 1 - j) * cout + o) * cin + c]
-                    : w[((int64_t)j * cin + c) * cout + o];
+             : to_f32(flip ? w[((int64_t)(k - 1 - j) * cout + o) * cin + c]
+                           : w[((int64_t)j * cin + c) * cout + o]);
     }
     uint4 out;
     uint32_t* p = reinterpret_cast<uint32_t*>(&out);
@@ -608,8 +623,9 @@ __global__ void cast_weight_image_kernel(const float* __restrict__ w,
 // operand: for each block b of 64 rows and each 64-column atom a,
 // [64 rows][128 bytes] with each row's 16-byte pieces swizzled. Column
 // tiles of `bn` columns take `natoms` atoms each; columns past the tile or
-// cout and rows past n are 0.
-__global__ void cast_row_image_kernel(const float* __restrict__ g,
+// cout and rows past n are 0. g f32 or bf16.
+template <class T>
+__global__ void cast_row_image_kernel(const T* __restrict__ g,
                                       __nv_bfloat16* __restrict__ img,
                                       int64_t n, int cout, int bn, int natoms,
                                       int ntiles) {
@@ -628,7 +644,7 @@ __global__ void cast_row_image_kernel(const float* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       v[i] = row < n && col + i < cout && within + i < bn
-                 ? g[row * cout + col + i] : 0.f;
+                 ? to_f32(g[row * cout + col + i]) : 0.f;
     }
     uint4 out;
     uint32_t* p = reinterpret_cast<uint32_t*>(&out);
@@ -1101,18 +1117,26 @@ window_conv_kernel(const __nv_bfloat16* __restrict__ xb,
   __syncthreads();  // no producer leaves before the copies it issued landed
 }
 
-// The operands the window conv reads: x [n, cin] f32 as bf16 rows padded to
-// cinp channels, and w [k, cin, cout] f32 (with `flip`: a forward's [k,
-// cout, cin]) as the weight image of its tiles of conv_tile_n(cout) columns.
-int cast_conv_operands(const float* x, const float* w, __nv_bfloat16* xb,
-                       __nv_bfloat16* wimg, int n, int k, int cin, int cinp,
-                       int cout, int flip, cudaStream_t stream) {
+// The operands the window conv reads: x [n, cin] as bf16 rows padded to
+// cinp channels, and w [k, cin, cout] (with `flip`: a forward's [k, cout,
+// cin]) as the weight image of its tiles of conv_tile_n(cout) columns; x
+// and w each f32 or bf16 (`x_bf16`, `w_bf16`).
+int cast_conv_operands(const void* x, int x_bf16, const void* w, int w_bf16,
+                       __nv_bfloat16* xb, __nv_bfloat16* wimg, int n, int k,
+                       int cin, int cinp, int cout, int flip,
+                       cudaStream_t stream) {
   const int nsl = (cinp + 63) / 64;
   const int bn = conv_tile_n(cout);
   const int ntiles = (cout + bn - 1) / bn;
-  cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(x, xb, n, cin, cinp);
-  cast_weight_image_kernel<<<grid_for((int64_t)ntiles * k * nsl * bn * 8), 256, 0,
-                             stream>>>(w, wimg, k, cin, cout, bn, nsl, ntiles, flip);
+  with_dtype(x, x_bf16, [&](auto xp) {
+    cast_rows_kernel<<<grid_for((int64_t)n * cinp / 8), 256, 0, stream>>>(xp, xb, n, cin, cinp);
+    return 0;
+  });
+  with_dtype(w, w_bf16, [&](auto wp) {
+    cast_weight_image_kernel<<<grid_for((int64_t)ntiles * k * nsl * bn * 8), 256, 0,
+                               stream>>>(wp, wimg, k, cin, cout, bn, nsl, ntiles, flip);
+    return 0;
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,13 @@ from agile3d_torch.engine.clicks import (
 )
 from agile3d_torch.engine.device_eval import evaluate_scene_device
 from agile3d_torch.models.agile3d import Agile3D, ClickState
+from agile3d_torch.models.criterion import (
+    click_loss_weights,
+    criterion_forward,
+    loss_weight_dict,
+    model_num_aux_rounds,
+    total_loss,
+)
 from agile3d_torch.sparse.grid import to_device
 from agile3d_torch.utils.costs import SINGLE_CHIP_HBM_GIB, eval_hbm_gib
 
@@ -146,6 +153,32 @@ class InteractiveEngine:
         return out, out["pred_masks"].argmax(dim=-1)
 
     @torch.no_grad()
+    def val_losses(self, out: dict, scene, clicks: HostClicks,
+                   labels: np.ndarray) -> dict:
+        """One round's validation losses (the JAX package's
+        ``_val_losses``, reference engine.py:236-246): the criterion on the
+        pass's ``all_masks`` against ``labels`` (the scene's valid voxels'
+        labels, padded with -1 to the pass's rows), click-weighted by the
+        click table at the pass's bucket. Returns {"loss": the weighted
+        total, "loss_bce", "loss_dice" (those configured)} as floats."""
+        cfg = self.cfg
+        dev = self.device
+        cs = stack_clicks([clicks], self._click_bucket(clicks.count), dev)
+        pad = np.full(scene.vox_valid.shape[1], -1, np.int32)
+        pad[: len(labels)] = labels
+        lab = torch.from_numpy(pad[None]).to(dev)
+        vox_valid = scene.vox_valid & (lab >= 0)
+        weights = click_loss_weights(scene.raw, vox_valid, cs.vox, cs.vox >= 0,
+                                     cfg.loss)
+        losses = criterion_forward(out["all_masks"], lab.clamp(min=0), weights,
+                                   vox_valid, cfg.loss)
+        wd = loss_weight_dict(cfg.loss,
+                              num_aux_rounds=model_num_aux_rounds(cfg.model))
+        return {"loss": float(total_loss(losses, wd)),
+                **{k: float(v) for k, v in losses.items()
+                   if k in ("loss_bce", "loss_dice")}}
+
+    @torch.no_grad()
     def run_mask_batch(self, scene, clicks: list[HostClicks],
                        num_obj: np.ndarray) -> torch.Tensor:
         """One decoder pass for a batch of samples (the training rollout),
@@ -169,11 +202,13 @@ class InteractiveEngine:
 
 def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
                    instance_id: int, rng: random.Random,
-                   max_num_clicks: int = 20, mode: str = "multi") -> list[str]:
+                   max_num_clicks: int = 20, mode: str = "multi",
+                   loss_meter=None) -> list[str]:
     """The click rollout of one scene (batch size 1) in the ``mode``
     protocol. Returns CSV rows ``id scene obj clicks iou``. Once no voxel
     is wrong, the remaining rounds repeat the converged IoU without running
-    the model."""
+    the model. ``loss_meter`` (a ``utils/misc.py::MetricLogger``) gets each
+    model round's validation losses (``InteractiveEngine.val_losses``)."""
     if len(batch.scene_names) != 1:
         raise ValueError("eval runs one scene per batch")
     cfg = engine.cfg
@@ -195,9 +230,12 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
         if current == 0:
             pred = np.zeros(n_valid, np.int32)
         elif converged_iou is None:
-            _, pred_dev = engine.run_mask(scene, clicks, num_obj)
+            out, pred_dev = engine.run_mask(scene, clicks, num_obj)
             pred = pred_dev[0, :n_valid].cpu().numpy().astype(np.int32)
             pred = apply_click_override(pred, clicks)
+            if loss_meter is not None:
+                loss_meter.update(**engine.val_losses(out, scene, clicks,
+                                                      labels_v))
 
         if converged_iou is None:
             iou = engine.scene_iou(pred, batch.inverse_map[0],
@@ -224,15 +262,21 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
 def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
                      max_num_clicks: int = 20, seed: int = 42,
                      log=print, device_rollout: bool = True,
-                     mode: str = "multi") -> str:
+                     mode: str = "multi", loss_meter=None) -> str:
     """Scenes in order, one CSV, in the ``mode`` protocol; the caller runs
     the evaluator on it. Logs the final IoU of every tenth scene.
     ``device_rollout`` runs each scene's rounds >= 1 on the device
     (``evaluate_scene_device``), else the host loop (``evaluate_scene``);
     the rows are the same. Up to two scenes ahead are loaded and collated
     on a host thread while a scene runs (val datasets draw nothing while
-    loading, so the rows do not change)."""
+    loading, so the rows do not change). ``loss_meter`` collects the
+    validation losses, on the host loop only (where the JAX package
+    computes them)."""
+    if device_rollout and loss_meter is not None:
+        raise ValueError("the validation losses are computed on the host "
+                         "loop: pass device_rollout=False with loss_meter")
     scene_fn = evaluate_scene_device if device_rollout else evaluate_scene
+    extra = {} if loss_meter is None else {"loss_meter": loss_meter}
     rng = random.Random(seed)
     fetcher = BatchPrefetcher(
         lambda i: collate_scenes([dataset[i]], engine.cfg.buckets),
@@ -240,7 +284,7 @@ def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
     with open(results_file, "w") as f:
         for i, batch in enumerate(fetcher):
             rows = scene_fn(engine, batch, instance_id=i, rng=rng,
-                            max_num_clicks=max_num_clicks, mode=mode)
+                            max_num_clicks=max_num_clicks, mode=mode, **extra)
             f.write("\n".join(rows) + "\n")
             if i % 10 == 0:
                 log(f"[{i + 1}/{len(dataset)}] {batch.scene_names[0]} "

@@ -40,6 +40,7 @@ from agile3d_torch.models.criterion import (
     model_num_aux_rounds,
     total_loss,
 )
+from agile3d_torch.utils.misc import MetricLogger
 
 
 class Optimizer:
@@ -53,11 +54,20 @@ class Optimizer:
         ``gnorm >= max_norm``, else ``g`` unchanged;
       * AdamW (betas 0.9 / 0.999, eps 1e-8, decoupled weight decay on every
         parameter; a parameter without a gradient gets a zero one, as
-        optax's would be)."""
+        optax's would be).
+
+    ``params``: (name, parameter) pairs, as ``named_parameters()`` gives
+    them, or bare parameters (then named by position). ``state_dict()``
+    holds the update count and AdamW's per-parameter state by those
+    names."""
 
     def __init__(self, params, cfg: Config, steps_per_epoch: int):
         t = cfg.train
-        self.params = [p for p in params if p.requires_grad]
+        named = [p if isinstance(p, tuple) else (str(i), p)
+                 for i, p in enumerate(params)]
+        named = [(n, p) for n, p in named if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.max_norm = t.clip_max_norm
         self.boundaries = {int(e) * steps_per_epoch: t.lr_drop_gamma
                            for e in t.lr_drop}
@@ -96,10 +106,47 @@ class Optimizer:
         self.count += 1
         return gnorm
 
+    def state_dict(self) -> dict:
+        """``{"count": updates taken (the schedule's position), "params":
+        {name: {"step", "exp_avg", "exp_avg_sq"}}}``: AdamW's state of each
+        parameter that has one (the live tensors, as torch's optimizers
+        return them)."""
+        return {"count": self.count,
+                "params": {n: dict(self.adamw.state[p])
+                           for n, p in zip(self.names, self.params)
+                           if self.adamw.state[p]}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict()``'s content: the count and, by parameter
+        name, AdamW's state (copied onto each parameter's device). Every
+        parameter of this optimizer must have an entry, or none may (a
+        state taken before the first update)."""
+        have = sd["params"]
+        if have and set(have) != set(self.names):
+            missing = sorted(set(self.names) - set(have))
+            extra = sorted(set(have) - set(self.names))
+            raise KeyError(f"optimizer state does not match the parameters: "
+                           f"missing {missing[:3]}, unknown {extra[:3]}")
+        self.adamw.state.clear()
+        for n, p in zip(self.names, self.params):
+            if n not in have:
+                continue
+            st = have[n]
+            for key in ("exp_avg", "exp_avg_sq"):
+                if tuple(st[key].shape) != tuple(p.shape):
+                    raise ValueError(f"{n}.{key}: shape {tuple(st[key].shape)}"
+                                     f" != {tuple(p.shape)}")
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(st["step"])),
+                "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype).clone()}
+        self.count = int(sd["count"])
+
 
 def make_optimizer(model: Agile3D, cfg: Config, steps_per_epoch: int):
-    """The optimizer over ``model``'s parameters and its schedule."""
-    opt = Optimizer(model.parameters(), cfg, steps_per_epoch)
+    """The optimizer over ``model``'s named parameters and its schedule."""
+    opt = Optimizer(model.named_parameters(), cfg, steps_per_epoch)
     return opt, opt.lr
 
 
@@ -132,14 +179,18 @@ def make_train_step(cfg: Config, model: Agile3D, optimizer: Optimizer):
                           num_aux_rounds=model_num_aux_rounds(cfg.model))
 
     def train_step(device_batch, clicks: ClickState, labels: torch.Tensor,
-                   num_obj: torch.Tensor) -> dict:
+                   num_obj: torch.Tensor,
+                   dropout_gen: torch.Generator | None = None) -> dict:
+        """``dropout_gen`` draws the decoder's dropout masks (``cfg.model.
+        dropout`` > 0); None runs without dropout."""
         pyr, feats, raw, sample_idx = device_batch
         optimizer.zero_grad()
         bn_stats = {}
         with torch.enable_grad():
             scene = model.forward_backbone(pyr, feats, raw, sample_idx,
                                            bn_stats)
-            out = model.forward_mask(scene, clicks, num_obj)
+            out = model.forward_mask(scene, clicks, num_obj,
+                                     train_gen=dropout_gen)
             target = labels.clamp(min=0)
             vox_valid = scene.vox_valid & (labels >= 0)
             weights = click_loss_weights(scene.raw, vox_valid, clicks.vox,
@@ -156,7 +207,7 @@ def make_train_step(cfg: Config, model: Agile3D, optimizer: Optimizer):
                                cfg.model.max_fg_objects)
         return {"loss": tot.detach(),
                 "losses": {k: v.detach() for k, v in losses.items()},
-                "gnorm": gnorm, "miou": miou}
+                "gnorm": gnorm, "miou": miou, "attn_chunk": out["attn_chunk"]}
 
     return train_step
 
@@ -262,9 +313,14 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
     the steps; the same trajectory). ``device_rollout``
     runs each batch's click rollout on the device: its round count comes
     from ``py_rng`` and its generator's seed from ``np_rng``, drawn where
-    the JAX package draws them. Returns the epoch's averages (loss,
-    grad_norm, mIoU, loss_bce, loss_dice). Raises FloatingPointError on a
-    non-finite loss."""
+    the JAX package draws them. With ``cfg.model.dropout`` > 0 the
+    supervised step's dropout generator is seeded from ``np_rng`` after
+    the rollout, where the JAX package draws its key, so every later draw
+    of the epoch stays in step with the JAX package's; the rollout's
+    decoder runs without dropout. Logs through a ``MetricLogger`` every
+    ``print_freq`` steps and at the last. Returns the epoch's averages
+    (loss, grad_norm, mIoU, loss_bce, loss_dice). Raises
+    FloatingPointError on a non-finite loss."""
     bs = cfg.train.batch_size
     n = len(dataset)
     if order is None:
@@ -275,9 +331,10 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
         lambda w: prepare_batch(dataset, w[0], cfg, w[1]),
         [(ids, int(s)) for ids, s in zip(batches, seeds)],
         depth=cfg.train.prefetch)
-    sums: dict[str, float] = {}
+    logger = MetricLogger(log=log)
     dev = engine.device
-    for step, (batch, labels_new, num_obj, n_valid) in enumerate(fetcher):
+    for batch, labels_new, num_obj, n_valid in logger.log_every(
+            fetcher, print_freq, f"Epoch: [{epoch}]"):
         b = labels_new.shape[0]
 
         # rollout, with the backbone normalising as the supervised pass will
@@ -304,20 +361,18 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
                 cfg.model.max_clicks, dev)
         del scene
 
+        dropout_gen = None
+        if cfg.model.dropout > 0:
+            dropout_gen = torch.Generator(device=dev).manual_seed(
+                int(np_rng.integers(2 ** 31)))
         out = train_step(engine.device_batch(batch), clicks, labels_dev,
-                         num_obj_dev)
+                         num_obj_dev, dropout_gen)
         tot = float(out["loss"])
         if not np.isfinite(tot):
             raise FloatingPointError(f"Loss is {tot}, stopping training")
-        row = {"loss": tot, "grad_norm": float(out["gnorm"]),
-               "mIoU": float(out["miou"]),
-               **{k: float(v) for k, v in out["losses"].items()
-                  if k in ("loss_bce", "loss_dice")}}
-        for k, v in row.items():
-            sums[k] = sums.get(k, 0.0) + v
-        if step % print_freq == 0 or step == len(batches) - 1:
-            log(f"Epoch: [{epoch}] [{step}/{len(batches)}] "
-                + "  ".join(f"{k}: {v:.4f}" for k, v in row.items()))
-    stats = {k: v / len(batches) for k, v in sums.items()}
-    log(f"Averaged stats: {stats}")
-    return stats
+        logger.update(loss=tot, grad_norm=float(out["gnorm"]),
+                      mIoU=float(out["miou"]),
+                      **{k: float(v) for k, v in out["losses"].items()
+                         if k in ("loss_bce", "loss_dice")})
+    log(f"Averaged stats: {logger}")
+    return {k: m.global_avg for k, m in logger.meters.items()}

@@ -1,27 +1,38 @@
 """Multi-object iterative-click training: ``python -m agile3d_torch.main``.
 
 Builds the model (random weights from ``--seed``), the train and val
-datasets, AdamW with the step schedule, and runs the epoch loop. After
-every epoch it writes ``<output_dir>/checkpoint.pth`` in the reference
-state-dict layout (``python -m agile3d_torch.eval_multi_obj --checkpoint``
-reads it), plus an archival ``checkpoint{epoch:04d}.pth`` every 20 epochs
-and before each LR drop; every ``--val_epochs`` epochs it runs the
-interactive validation and prints the evaluator's metrics.
+datasets, AdamW with the step schedule, and runs the epoch loop from
+``--start_epoch``. Every ``--ckpt_epochs`` epochs, and always after the
+last one, it writes the resumable ``<output_dir>/checkpoint.pth``
+(``{"model": the reference state-dict layout, "optimizer", "epoch"}``;
+``python -m agile3d_torch.eval_multi_obj --checkpoint`` reads its
+weights), plus an archival ``checkpoint{epoch:04d}.pth`` every 20 epochs
+and before each LR drop, whatever the cadence. ``--resume`` takes such a
+checkpoint whole (weights, BatchNorm statistics, optimizer state) and
+continues at its epoch + 1; any other ``.pth`` (the reference's
+``checkpoint1099.pth``) loads as weights alone, and ``--start_epoch``
+stands. The random generators are seeded from ``--seed`` at every start,
+as the JAX package's are, so a resumed run does not replay the draws an
+uninterrupted one would make. Every ``--val_epochs`` epochs it runs the
+interactive validation (the host loop, as the JAX package's does) and
+prints the evaluator's metrics and the validation losses. Epoch and
+validation numbers go to wandb where the ``wandb`` package and a key are
+present (``utils/misc.py::setup_wandb``), else nowhere.
 
     python -m agile3d_torch.main --scan_folder SCANS --train_list TRAIN.json \\
-        --val_list VAL.json [--device cuda] [--epochs N] [--batch_size 5]
+        --val_list VAL.json [--device cuda] [--epochs N] [--batch_size 5] \\
+        [--resume output/RUN/checkpoint.pth] [--ckpt_epochs 1]
 
 ``--device_rollout`` runs each step's click rollout on the device
-(``engine/device_train.py``) instead of the host loop; the validation runs
-the host loop, as the JAX package's does. ``--num_workers`` batches are
-assembled ahead of the step on a host thread (``data/prefetch.py``).
+(``engine/device_train.py``) instead of the host loop.
+``--num_workers`` batches are assembled ahead of the step on a host thread
+(``data/prefetch.py``). ``--dataset_mode single_obj`` trains on the
+single-object dataset and validates as the JAX package's ``main.py`` does
+(the multi-object protocol and evaluator on ``--val_list``).
 
 Takes the flags of the JAX package's ``main.py``, the reference model
-block among them (``cli.py``), except checkpoints and resume
-(``--resume``, ``--start_epoch``, ``--ckpt_epochs``) and data parallelism
-(``--num_dp``), which are not ported yet; wandb logging is not ported
-either (``--job_name`` is accepted and unused), nor is the single-object
-training dataset (``--dataset_mode multi_obj`` only).
+block among them (``cli.py``), except data parallelism (``--num_dp``),
+which is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,7 +67,8 @@ from agile3d_torch.engine.train import (
 )
 from agile3d_torch.evaluation.evaluators import EvaluatorMO
 from agile3d_torch.models.agile3d import init_agile3d
-from agile3d_torch.utils.ckpt import save_checkpoint
+from agile3d_torch.utils.ckpt import load_training_checkpoint, save_checkpoint
+from agile3d_torch.utils.misc import MetricLogger, setup_wandb
 
 
 def get_args_parser():
@@ -80,9 +92,10 @@ def get_args_parser():
     p.add_argument("--clip_max_norm", default=0.1, type=float)
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--output_dir", default="output")
+    p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--resume", default="", help="resume from checkpoint")
     p.add_argument("--max_num_clicks", default=20, type=int)
-    p.add_argument("--job_name", default="test", type=str,
-                   help="accepted for reference scripts; unused (no wandb)")
+    p.add_argument("--job_name", default="test", type=str)
     p.add_argument("--num_workers", default=2, type=int,
                    help="batches assembled ahead of the step on a host "
                         "thread (the reference's DataLoader workers)")
@@ -90,6 +103,11 @@ def get_args_parser():
     p.add_argument("--device_rollout", action="store_true",
                    help="run the training click rollout on the device "
                         "instead of the per-round host loop")
+    p.add_argument("--ckpt_epochs", default=1, type=int,
+                   help="rolling-checkpoint cadence: checkpoint.pth every "
+                        "N epochs and after the last (1 = the reference's "
+                        "per-epoch save); the archival copies every 20 "
+                        "epochs and before LR drops are unaffected")
     return p
 
 
@@ -109,13 +127,33 @@ def build_config(args) -> Config:
             num_workers=args.num_workers, prefetch=args.num_workers))
 
 
+def _wandb():
+    """wandb where the package and a key are present, else a logger that
+    logs nowhere."""
+    try:
+        import wandb
+    except ImportError:
+        wandb = None
+    if wandb is not None and setup_wandb():
+        return wandb
+
+    class _Noop:
+        def init(self, *a, **k): pass
+        def log(self, *a, **k): pass
+    return _Noop()
+
+
 def main(args, log=print) -> dict:
     """Train; returns {"epochs": [per-epoch averages], "val": {epoch:
-    evaluator dict}, "model": the trained model}."""
-    if args.dataset_mode != "multi_obj":
-        raise SystemExit(f"--dataset_mode {args.dataset_mode}: only "
-                         "multi_obj training is ported")
+    evaluator dict}, "val_losses": {epoch: the validation losses' means},
+    "start_epoch": the first epoch run, "model": the trained model,
+    "optimizer": its optimizer}."""
+    if args.ckpt_epochs < 1:
+        raise SystemExit(f"--ckpt_epochs must be >= 1, got "
+                         f"{args.ckpt_epochs}")
     device = resolve_device(device_arg(args))
+    wandb = _wandb()
+    wandb.init(project="AGILE3D")
     cfg = build_config(args)
     seed = args.seed
     np.random.seed(seed)
@@ -142,30 +180,52 @@ def main(args, log=print) -> dict:
 
     val_dir = os.path.join(args.output_dir, "valResults")
     os.makedirs(val_dir, exist_ok=True)
-    history = {"epochs": [], "val": {}, "model": engine.model}
+    if args.resume:
+        epoch = load_training_checkpoint(args.resume, engine.model, optimizer)
+        if epoch is not None:
+            args.start_epoch = epoch + 1
+    history = {"epochs": [], "val": {}, "val_losses": {},
+               "start_epoch": args.start_epoch, "model": engine.model,
+               "optimizer": optimizer}
     log("Start training")
     start = time.time()
-    for epoch in range(cfg.train.epochs):
+    for epoch in range(args.start_epoch, cfg.train.epochs):
         stats = train_one_epoch(engine, train_step, dataset_train, cfg, epoch,
                                 np_rng=np_rng, py_rng=py_rng, log=log,
                                 device_rollout=args.device_rollout)
         history["epochs"].append(stats)
+        epoch_log = {"train/epoch": epoch, "train/loss_epoch": stats["loss"]}
+        if "mIoU" in stats:
+            epoch_log["train/mIoU_epoch"] = stats["mIoU"]
+        wandb.log(epoch_log)
 
-        paths = [os.path.join(args.output_dir, "checkpoint.pth")]
+        # the rolling checkpoint every --ckpt_epochs and after the last
+        # epoch; the archival copies every 20 epochs and before LR drops
+        paths = []
+        if (epoch + 1) % args.ckpt_epochs == 0 or epoch + 1 == args.epochs:
+            paths.append(os.path.join(args.output_dir, "checkpoint.pth"))
         if (epoch + 1) in cfg.train.lr_drop or (epoch + 1) % 20 == 0:
             paths.append(os.path.join(args.output_dir,
                                       f"checkpoint{epoch:04d}.pth"))
         for path in paths:
-            save_checkpoint(path, engine.model, epoch)
+            save_checkpoint(path, engine.model, epoch, optimizer)
 
         if (epoch + 1) % cfg.train.val_epochs == 0:
             csv = os.path.join(val_dir, f"val_results_epoch_{epoch}.csv")
+            val_meter = MetricLogger()
             evaluate_dataset(engine, dataset_val, csv,
                              max_num_clicks=cfg.train.max_num_clicks,
-                             seed=seed, log=log, device_rollout=False)
+                             seed=seed, log=log, device_rollout=False,
+                             loss_meter=val_meter)
             res = EvaluatorMO(args.val_list, csv).eval_results()
             history["val"][epoch] = res
-            log(res)
+            history["val_losses"][epoch] = {
+                k: m.global_avg for k, m in val_meter.meters.items()}
+            log(f"{res} {val_meter}")
+            wandb.log({f"val_metrics/{k.replace('@', '_')}": v
+                       for k, v in res.items()})
+            wandb.log({f"val/{k}_epoch": v
+                       for k, v in history["val_losses"][epoch].items()})
     log(f"Training time "
         f"{datetime.timedelta(seconds=int(time.time() - start))}")
     return history

@@ -80,6 +80,9 @@ def _where0(mask, x):
     return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+# ModelConfig.backbone_dtype -> Res16UNet.forward's compute_dtype
+_BACKBONE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
 # the modules and buffers that forward_mask reads
 _DECODER_PARTS = ("bg_query_feat", "bg_query_pos", "mask_embed_head",
                   "decoder_norm", "pos_enc", "c2s_attention", "c2c_attention",
@@ -127,9 +130,8 @@ class Agile3D(nn.Module):
                 "hlevels entries must all be 4: the reference's coarse-hlevel "
                 "path is structurally broken, so only repeated-finest "
                 "configurations are supported")
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                "decoder dropout is not ported yet (dropout must be 0.0)")
+        if cfg.backbone_dtype not in _BACKBONE_DTYPES:
+            raise ValueError(f"backbone_dtype {cfg.backbone_dtype!r}")
         if cfg.backbone.block != "basic":
             raise ValueError(
                 f"block {cfg.backbone.block!r}: the model takes BasicBlock "
@@ -157,12 +159,14 @@ class Agile3D(nn.Module):
             return nn.ModuleList(nn.ModuleList(make() for _ in range(n_slots))
                                  for _ in range(n_sets))
 
-        h, pre = cfg.num_heads, cfg.pre_norm
-        self.c2s_attention = layers(lambda: CrossAttentionLayer(c, h, pre))
-        self.c2c_attention = layers(lambda: SelfAttentionLayer(c, h, pre))
+        h, pre, drop = cfg.num_heads, cfg.pre_norm, cfg.dropout
+        self.c2s_attention = layers(
+            lambda: CrossAttentionLayer(c, h, pre, drop))
+        self.c2c_attention = layers(lambda: SelfAttentionLayer(c, h, pre, drop))
         self.ffn_attention = layers(
-            lambda: FFNLayer(c, cfg.dim_feedforward, pre))
-        self.s2c_attention = layers(lambda: CrossAttentionLayer(c, h, pre))
+            lambda: FFNLayer(c, cfg.dim_feedforward, pre, drop))
+        self.s2c_attention = layers(
+            lambda: CrossAttentionLayer(c, h, pre, drop))
         self.register_buffer("time_pe", torch.from_numpy(
             positional_encoding_1d(c, cfg.time_table_len)), persistent=False)
 
@@ -185,9 +189,12 @@ class Agile3D(nn.Module):
                          bn_stats: dict | None = None) -> SceneFeatures:
         """pyr on the device; feats/raw_coords [N0, 3] flat; sample_idx
         [B, Ns] flat rows per sample slot, -1 pad. ``bn_stats`` (a dict)
-        runs the backbone in training mode (see ``Res16UNet.forward``)."""
-        fmaps = self.backbone(pyr, feats, bn_stats)
-        squeezed = linear(fmaps[-1], self.lin_squeeze_head.kernel,
+        runs the backbone in training mode (see ``Res16UNet.forward``);
+        ``cfg.backbone_dtype`` selects its dtype policy."""
+        fmaps = self.backbone(pyr, feats, bn_stats,
+                              compute_dtype=_BACKBONE_DTYPES[
+                                  self.cfg.backbone_dtype])
+        squeezed = linear(fmaps[-1].float(), self.lin_squeeze_head.kernel,
                           self.lin_squeeze_head.bias,
                           valid=pyr.levels[0].valid)
         vox_valid = sample_idx >= 0
@@ -283,10 +290,19 @@ class Agile3D(nn.Module):
         return self.__dict__["_bf16_decoder"][1]
 
     def forward_mask(self, scene: SceneFeatures, clicks: ClickState,
-                     num_obj: torch.Tensor) -> dict:
+                     num_obj: torch.Tensor,
+                     train_gen: torch.Generator | None = None) -> dict:
         """All refinement rounds for the current click table. Returns
         pred_masks [B, N, 1 + max_fg_objects] (last round) and aux_masks
-        [R-1, B, N, 1 + max_fg_objects] (earlier rounds), in f32."""
+        [R-1, B, N, 1 + max_fg_objects] (earlier rounds), in f32.
+
+        ``train_gen`` turns on ``cfg.dropout`` (training; None in eval and
+        in the click rollouts). It seeds four streams per round, drawn in
+        the JAX package's order (c2s, c2c, ffn, s2c), each a generator of
+        its own on the decoder's device, so that a round recomputed in the
+        backward draws its masks again. Dropout > 0 runs dense attention,
+        as the JAX package does: its chunked forms carry no probability
+        dropout."""
         cfg = self.cfg
         w = self._decoder_weights()
         if w is not self:
@@ -326,6 +342,13 @@ class Agile3D(nn.Module):
         safe_obj = query_obj.clamp(0, n_cols - 1)
         chunk = _pick_attn_chunk(n, b * queries.shape[1] * n * cfg.num_heads,
                                  cfg)
+        n_slots = len(cfg.hlevels)
+        n_rounds = cfg.num_decoders * n_slots
+        seeds = [[None] * 4] * n_rounds
+        if train_gen is not None and cfg.dropout > 0:
+            chunk = 0
+            seeds = torch.randint(2 ** 62, (n_rounds, 4), generator=train_gen,
+                                  device=train_gen.device).tolist()
         cdt = scene.mask_feat.dtype
 
         src = scene.mask_feat
@@ -333,9 +356,11 @@ class Agile3D(nn.Module):
         # initial attention mask)
         labels = torch.zeros((b, n), dtype=torch.long, device=dev)
         present = torch.zeros((b, n_cols), dtype=torch.bool, device=dev)
-        n_slots = len(cfg.hlevels)
 
-        def round_body(d, i, queries, src, labels, present):
+        def round_body(d, i, seeds4, queries, src, labels, present):
+            c2s, c2c, ffn, s2c = (
+                None if sd is None else torch.Generator(device=dev).manual_seed(sd)
+                for sd in seeds4)
             if chunk:
                 c2s_bias, c2s_bias_fn = None, _round_bias_chunk(
                     labels, present, safe_obj, scene.vox_valid)
@@ -345,13 +370,14 @@ class Agile3D(nn.Module):
             queries = w.c2s_attention[d][i](
                 queries, src, pos=scene.pos_pcd, query_pos=query_pos,
                 attn_bias=c2s_bias, attn_bias_fn=c2s_bias_fn,
-                chunk_keys=chunk)
+                chunk_keys=chunk, generator=c2s)
             queries = w.c2c_attention[d][i](
-                queries, query_pos=query_pos, attn_bias=q_key_bias)
-            queries = w.ffn_attention[d][i](queries)
+                queries, query_pos=query_pos, attn_bias=q_key_bias,
+                generator=c2c)
+            queries = w.ffn_attention[d][i](queries, generator=ffn)
             src = w.s2c_attention[d][i](
                 src, queries, pos=query_pos, query_pos=scene.pos_pcd,
-                attn_bias=q_key_bias, chunk_queries=chunk)
+                attn_bias=q_key_bias, chunk_queries=chunk, generator=s2c)
             masks, labels, present = self._mask_module(
                 w, queries, src, query_obj, query_valid, col_valid,
                 scene.vox_valid)
@@ -367,7 +393,8 @@ class Agile3D(nn.Module):
         for r in range(cfg.num_decoders):
             d = 0 if cfg.shared_decoder else r
             for i in range(n_slots):
-                args = (d, i, queries, src, labels, present)
+                args = (d, i, seeds[r * n_slots + i], queries, src, labels,
+                        present)
                 queries, src, labels, present, masks = (
                     checkpoint(round_body, *args, use_reentrant=False)
                     if remat else round_body(*args))

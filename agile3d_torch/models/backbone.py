@@ -26,7 +26,7 @@ Routing of the CUDA kernels mirrors the JAX package on the TPU:
   * the k5 stem at level 0 with >= 32768 padded rows goes to
     ``ops.banded_stem`` in eval only: it has no backward kernel, so
     training takes the plain conv for the stem, as the JAX package does;
-  * every other conv is the plain float32 gather-GEMM.
+  * every other conv is the plain gather-GEMM (``ops/sparse_conv.py``).
 
 Training mode (``bn_stats`` given): BatchNorm normalises with the batch's
 statistics and writes each layer's new running statistics into
@@ -38,6 +38,22 @@ carried over: it was the 15.75 GB HBM limit of a TPU v5e, and the H100 has
 80 GB. No per-block rematerialisation: the backward keeps each block's
 activations (the 524,288-row training bucket fits on the card), and the
 kernels then launch once per forward conv.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's bf16 backbone
+(``backbone_forward(..., compute_dtype=jnp.bfloat16)``), promotion for
+promotion, as a ``jax.make_jaxpr`` trace of it shows: the features and
+every float32 weight (conv kernels, BatchNorm scale and bias; not the
+running statistics) are cast to bf16; the stem's, the down convs' and the
+up convs' BatchNorm runs on the input cast to f32 and casts its output
+back to bf16; the residual blocks' BatchNorm takes its input as it comes.
+So in eval a block's normalisation against the f32 running statistics
+promotes to f32, the rest of that block and the next convs run in f32
+against bf16 weights, and the five FPN maps come out f32; in training the
+batch statistics are bf16 and so are the maps. The kernels take the
+operands in either dtype and return the input's (``ops/banded_conv.py``).
+Eval reads a bf16 copy of the weights made once per model (again only when
+a weight changes); training casts inside autograd, so the gradients reach
+the f32 weights.
 """
 
 from __future__ import annotations
@@ -55,6 +71,10 @@ from agile3d_torch.sparse.grid import PaddedPyramid
 BANDED_MIN_ROWS = 32768
 BANDED_LEVELS = 2
 BANDED_MIN_CIN = 86
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 class SparseConv(nn.Module):
@@ -86,12 +106,14 @@ class BatchNorm(nn.Module):
         self.bn = _BNStats(c)
         self.momentum = momentum
 
-    def forward(self, x, valid, bn_stats=None):
+    def forward(self, x, valid, bn_stats=None, cast=_same):
+        """``cast`` gives the weight and bias in the compute dtype."""
         s = self.bn
+        weight, bias = cast(s.weight), cast(s.bias)
         if bn_stats is None:
-            return batch_norm(x, valid, s.weight, s.bias, s.running_mean,
+            return batch_norm(x, valid, weight, bias, s.running_mean,
                               s.running_var)
-        y, mean, var = batch_norm_train(x, valid, s.weight, s.bias,
+        y, mean, var = batch_norm_train(x, valid, weight, bias,
                                         s.running_mean, s.running_var,
                                         self.momentum)
         bn_stats[s] = (mean, var)
@@ -121,17 +143,13 @@ class BasicBlock(nn.Module):
                                          BatchNorm(planes, momentum))
                            if cin != planes else None)
 
-    def forward(self, x, k3, valid, banded: bool, bn_stats=None):
+    def forward(self, x, k3, valid, banded: bool, bn_stats=None, cast=_same):
         conv3 = _conv3_banded if banded else sparse_conv
-        out = torch.relu(self.norm1(conv3(x, k3, self.conv1.kernel), valid,
-                                    bn_stats))
-        out = self.norm2(conv3(out, k3, self.conv2.kernel), valid, bn_stats)
-        if self.downsample is not None:
-            residual = self.downsample[1](
-                linear(x, self.downsample[0].kernel), valid, bn_stats)
-        else:
-            residual = x
-        return torch.relu(out + residual)
+        out = torch.relu(self.norm1(conv3(x, k3, cast(self.conv1.kernel)),
+                                    valid, bn_stats, cast))
+        out = self.norm2(conv3(out, k3, cast(self.conv2.kernel)), valid,
+                         bn_stats, cast)
+        return torch.relu(out + _residual(self, x, valid, bn_stats, cast))
 
 
 class Bottleneck(nn.Module):
@@ -154,22 +172,27 @@ class Bottleneck(nn.Module):
                                          BatchNorm(out, momentum))
                            if cin != out else None)
 
-    def forward(self, x, k3, valid, banded: bool, bn_stats=None):
+    def forward(self, x, k3, valid, banded: bool, bn_stats=None, cast=_same):
         conv3 = _conv3_banded if banded else sparse_conv
-        out = torch.relu(self.norm1(linear(x, self.conv1.kernel), valid,
-                                    bn_stats))
-        out = torch.relu(self.norm2(conv3(out, k3, self.conv2.kernel), valid,
-                                    bn_stats))
-        out = self.norm3(linear(out, self.conv3.kernel), valid, bn_stats)
-        if self.downsample is not None:
-            residual = self.downsample[1](
-                linear(x, self.downsample[0].kernel), valid, bn_stats)
-        else:
-            residual = x
-        return torch.relu(out + residual)
+        out = torch.relu(self.norm1(linear(x, cast(self.conv1.kernel)), valid,
+                                    bn_stats, cast))
+        out = torch.relu(self.norm2(conv3(out, k3, cast(self.conv2.kernel)),
+                                    valid, bn_stats, cast))
+        out = self.norm3(linear(out, cast(self.conv3.kernel)), valid,
+                         bn_stats, cast)
+        return torch.relu(out + _residual(self, x, valid, bn_stats, cast))
 
 
 _BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+
+
+def _residual(block, x, valid, bn_stats, cast):
+    """The block's input, through its 1x1 downsample and BatchNorm when it
+    has one."""
+    if block.downsample is None:
+        return x
+    conv, norm = block.downsample
+    return norm(linear(x, cast(conv.kernel)), valid, bn_stats, cast)
 
 
 def _conv3_banded(x, k3, w):
@@ -289,37 +312,71 @@ class Res16UNet(nn.Module):
         flag = self.cfg.banded_conv
         return x.is_cuda if flag is None else bool(flag)
 
-    def _stem(self, feats, lv0, training: bool):
-        w = self.conv0p1s1.kernel
+    def _stem(self, feats, lv0, training: bool, w):
         if (self._use_banded(feats) and not training
                 and self.cfg.conv1_kernel_size == 5
                 and lv0.k5.shape[0] >= BANDED_MIN_ROWS):
             return banded_stem_conv(feats, lv0.k5, w)
         return sparse_conv(feats, lv0.k5, w)
 
+    def _caster(self, dtype, training: bool):
+        """The function that gives each float32 weight in ``dtype``: the
+        weight itself when ``dtype`` is None; in training a cast inside
+        autograd; in eval the weight's entry in a copy made once per model
+        and made again only when a weight changed (its storage or its
+        in-place version), kept out of the state dict."""
+        if dtype is None:
+            return _same
+        if training:
+            return lambda t: t.to(dtype) if t.dtype == torch.float32 else t
+        params = list(self.parameters())
+        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        cached = self.__dict__.get("_cast_weights")
+        if cached is None or cached[0] != key:
+            # ordinary tensors even when called under inference_mode
+            with torch.inference_mode(False), torch.no_grad():
+                copies = {p: p.detach().to(dtype) if p.dtype == torch.float32
+                          else p for p in params}
+            self.__dict__["_cast_weights"] = cached = (key, copies)
+        return cached[1].__getitem__
+
     def forward(self, pyr: PaddedPyramid, feats: torch.Tensor,
-                bn_stats: dict | None = None):
+                bn_stats: dict | None = None, compute_dtype=None):
         """``bn_stats``: None for eval; a dict for training (batch
-        statistics; the new running statistics land in it)."""
+        statistics; the new running statistics land in it).
+        ``compute_dtype``: None (float32) or ``torch.bfloat16``, the JAX
+        package's bf16 policy (module docstring)."""
         lv = pyr.levels
         use_banded = self._use_banded(feats)
+        training = bn_stats is not None
+        cast = self._caster(compute_dtype, training)
+        if compute_dtype is not None:
+            feats = feats.to(compute_dtype)
+
+        def bn(norm, x, valid):
+            # the stem's and the up and down convs' BatchNorm: in f32, the
+            # output back in the compute dtype
+            if compute_dtype is None:
+                return norm(x, valid, bn_stats)
+            return norm(x.float(), valid, bn_stats, cast).to(compute_dtype)
 
         def run_stage(stage, x, level_idx):
             level = lv[level_idx]
             banded = (use_banded and level_idx < BANDED_LEVELS
                       and level.k3.shape[0] >= BANDED_MIN_ROWS)
             for blk in stage:
-                x = blk(x, level.k3, level.valid, banded, bn_stats)
+                x = blk(x, level.k3, level.valid, banded, bn_stats, cast)
             return x
 
-        out = torch.relu(self.bn0(self._stem(feats, lv[0], bn_stats is not None),
-                                  lv[0].valid, bn_stats))
+        stem = self._stem(feats, lv[0], training, cast(self.conv0p1s1.kernel))
+        out = torch.relu(bn(self.bn0, stem, lv[0].valid))
         skips = [out]
         for i, name in enumerate(("conv1p1s2", "conv2p2s2", "conv3p4s2",
                                   "conv4p8s2")):
-            out = sparse_conv(out, lv[i].down, getattr(self, name).kernel)
-            out = torch.relu(getattr(self, f"bn{i + 1}")(out, lv[i + 1].valid,
-                                                         bn_stats))
+            out = sparse_conv(out, lv[i].down,
+                              cast(getattr(self, name).kernel))
+            out = torch.relu(bn(getattr(self, f"bn{i + 1}"), out,
+                                lv[i + 1].valid))
             out = run_stage(getattr(self, f"block{i + 1}"), out, i + 1)
             skips.append(out)
 
@@ -329,9 +386,9 @@ class Res16UNet(nn.Module):
             i, tgt = 4 + j, 3 - j
             out = sparse_conv_transpose(out, lv[tgt].up_parent,
                                         lv[tgt].up_offset,
-                                        getattr(self, name).kernel)
-            out = torch.relu(getattr(self, f"bntr{i}")(out, lv[tgt].valid,
-                                                       bn_stats))
+                                        cast(getattr(self, name).kernel))
+            out = torch.relu(bn(getattr(self, f"bntr{i}"), out,
+                                lv[tgt].valid))
             out = torch.cat([out, skips[tgt]], dim=1)
             out = run_stage(getattr(self, f"block{i + 1}"), out, tgt)
             feature_maps.append(out)

@@ -23,6 +23,12 @@ with the JAX package's formulas: the running max starts at ``NEG_INF``, the
 final divide is by ``max(l, 1e-30)``, and an axis that the chunk does not
 divide falls back to ``mha``.
 
+Dropout (training only) is the JAX package's: inverted dropout at torch's
+sites (the attention probabilities inside ``mha``, each attention layer's
+residual, the FFN's inner activation and its residual), drawn from an
+explicit ``torch.Generator``; the chunked forms carry no probability
+dropout, as the JAX package's scanned forms carry none.
+
 Mixed dtypes follow JAX's promotion, because the bf16 decoder policy
 (``ModelConfig.decoder_dtype``) mixes bf16 weights with f32 activations: a
 matmul or einsum of a bf16 and an f32 operand runs in f32 (torch would
@@ -69,14 +75,28 @@ def _query_heads(x, w, bias, num_heads):
     return q * float(scale.to(q.dtype))
 
 
-def _attend(q, k, v, attn_bias):
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate``
+    (a uniform draw from ``generator`` below it) and scaled by
+    ``1 / (1 - rate)``, else 0. The identity at rate 0 or without a
+    generator (eval)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _attend(q, k, v, attn_bias, dropout_rate=0.0, generator=None):
     """softmax(q k^T + bias) v over whole axes: q [B, Lq, H, hd], k / v
-    [B, Lk, H, hd], attn_bias [B, Lq or 1, Lk] -> [B, Lq, H * hd]."""
+    [B, Lk, H, hd], attn_bias [B, Lq or 1, Lk] -> [B, Lq, H * hd]; the
+    probabilities through ``dropout``."""
     b, lq, h, hd = q.shape
     logits = _einsum("bqhd,bkhd->bhqk", q, k)
     if attn_bias is not None:
         logits = logits + attn_bias[:, None]
-    attn = torch.softmax(logits, dim=-1)
+    attn = dropout(torch.softmax(logits, dim=-1), dropout_rate, generator)
     return _einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, lq, h * hd)
 
 
@@ -85,15 +105,18 @@ def _output(out, out_weight, out_bias):
 
 
 def mha(q_in, k_in, v_in, num_heads: int, in_proj_weight, in_proj_bias,
-        out_weight, out_bias, attn_bias=None):
+        out_weight, out_bias, attn_bias=None, dropout_rate: float = 0.0,
+        generator=None):
     """q_in [B, Lq, E]; k_in/v_in [B, Lk, E]; attn_bias [B, Lq, Lk] or
-    [B, 1, Lk] additive, broadcast over heads."""
+    [B, 1, Lk] additive, broadcast over heads; ``dropout_rate`` and
+    ``generator``: the attention probabilities' dropout."""
     w_q, w_k, w_v = in_proj_weight.chunk(3, dim=0)
     b_q, b_k, b_v = in_proj_bias.chunk(3, dim=0)
     q = _query_heads(q_in, w_q, b_q, num_heads)
     k = _heads(k_in, w_k, b_k, num_heads)
     v = _heads(v_in, w_v, b_v, num_heads)
-    return _output(_attend(q, k, v, attn_bias), out_weight, out_bias)
+    return _output(_attend(q, k, v, attn_bias, dropout_rate, generator),
+                   out_weight, out_bias)
 
 
 def mha_chunked_keys(q_in, k_in, v_in, num_heads: int, in_proj_weight,
@@ -172,9 +195,11 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
     def forward(self, q, k, v, attn_bias=None, *, chunk_keys: int = 0,
-                chunk_queries: int = 0, bias_fn=None):
+                chunk_queries: int = 0, bias_fn=None,
+                dropout_rate: float = 0.0, generator=None):
         """Dense ``mha``, or a chunked form when ``chunk_keys`` /
-        ``chunk_queries`` is set (``bias_fn`` with ``chunk_keys`` only)."""
+        ``chunk_queries`` is set (``bias_fn`` with ``chunk_keys`` only;
+        the probabilities' dropout in the dense form only)."""
         weights = (self.num_heads, self.in_proj_weight, self.in_proj_bias,
                    self.out_proj.weight, self.out_proj.bias)
         if chunk_keys:
@@ -183,7 +208,7 @@ class MultiheadAttention(nn.Module):
         if chunk_queries:
             return mha_chunked_queries(q, k, v, *weights, attn_bias,
                                        chunk_queries)
-        return mha(q, k, v, *weights, attn_bias)
+        return mha(q, k, v, *weights, attn_bias, dropout_rate, generator)
 
 
 def _ln(norm: nn.LayerNorm, x):
@@ -194,24 +219,31 @@ class CrossAttentionLayer(nn.Module):
     """q = tgt + query_pos, k = memory + pos, v = memory; residual + norm.
     ``chunk_keys`` / ``chunk_queries`` select the chunked attention;
     ``attn_bias_fn(start, size)`` gives the key-chunk bias in place of
-    ``attn_bias`` (``chunk_keys`` only)."""
+    ``attn_bias`` (``chunk_keys`` only). With a ``generator``, dropout at
+    rate ``dropout`` on the attention probabilities (dense form) and then
+    on the residual, in that order of draws."""
 
-    def __init__(self, d_model: int, num_heads: int, pre_norm: bool = False):
+    def __init__(self, d_model: int, num_heads: int, pre_norm: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.multihead_attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model)
         self.pre_norm = pre_norm
+        self.dropout = dropout
 
     def forward(self, tgt, memory, *, pos=None, query_pos=None, attn_bias=None,
                 attn_bias_fn=None, chunk_keys: int = 0,
-                chunk_queries: int = 0):
+                chunk_queries: int = 0, generator=None):
         k = memory if pos is None else memory + pos
 
         def attend(q):
-            return self.multihead_attn(q, k, memory, attn_bias,
-                                       chunk_keys=chunk_keys,
-                                       chunk_queries=chunk_queries,
-                                       bias_fn=attn_bias_fn)
+            out = self.multihead_attn(q, k, memory, attn_bias,
+                                      chunk_keys=chunk_keys,
+                                      chunk_queries=chunk_queries,
+                                      bias_fn=attn_bias_fn,
+                                      dropout_rate=self.dropout,
+                                      generator=generator)
+            return dropout(out, self.dropout, generator)
 
         if self.pre_norm:
             t2 = _ln(self.norm, tgt)
@@ -221,39 +253,50 @@ class CrossAttentionLayer(nn.Module):
 
 
 class SelfAttentionLayer(nn.Module):
-    """q = k = tgt + query_pos, v = tgt; residual + norm."""
+    """q = k = tgt + query_pos, v = tgt; residual + norm. With a
+    ``generator``, dropout as ``CrossAttentionLayer``'s."""
 
-    def __init__(self, d_model: int, num_heads: int, pre_norm: bool = False):
+    def __init__(self, d_model: int, num_heads: int, pre_norm: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model)
         self.pre_norm = pre_norm
+        self.dropout = dropout
 
-    def forward(self, tgt, *, query_pos=None, attn_bias=None):
+    def forward(self, tgt, *, query_pos=None, attn_bias=None, generator=None):
+        def attend(q, v):
+            out = self.self_attn(q, q, v, attn_bias, dropout_rate=self.dropout,
+                                 generator=generator)
+            return dropout(out, self.dropout, generator)
+
         if self.pre_norm:
             t2 = _ln(self.norm, tgt)
-            q = t2 if query_pos is None else t2 + query_pos
-            return tgt + self.self_attn(q, q, t2, attn_bias)
+            return tgt + attend(t2 if query_pos is None else t2 + query_pos, t2)
         q = tgt if query_pos is None else tgt + query_pos
-        return _ln(self.norm, tgt + self.self_attn(q, q, tgt, attn_bias))
+        return _ln(self.norm, tgt + attend(q, tgt))
 
 
 class FFNLayer(nn.Module):
-    """linear -> relu -> linear; residual + norm."""
+    """linear -> relu -> linear; residual + norm. With a ``generator``,
+    dropout on the inner activation and then on the residual."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
-                 pre_norm: bool = False):
+                 pre_norm: bool = False, dropout: float = 0.0):
         super().__init__()
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm = nn.LayerNorm(d_model)
         self.pre_norm = pre_norm
+        self.dropout = dropout
 
-    def _inner(self, x):
+    def _inner(self, x, generator):
         h = torch.relu(matmul(x, self.linear1.weight.T) + self.linear1.bias)
-        return matmul(h, self.linear2.weight.T) + self.linear2.bias
+        h = dropout(h, self.dropout, generator)
+        out = matmul(h, self.linear2.weight.T) + self.linear2.bias
+        return dropout(out, self.dropout, generator)
 
-    def forward(self, tgt):
+    def forward(self, tgt, generator=None):
         if self.pre_norm:
-            return tgt + self._inner(_ln(self.norm, tgt))
-        return _ln(self.norm, tgt + self._inner(tgt))
+            return tgt + self._inner(_ln(self.norm, tgt), generator)
+        return _ln(self.norm, tgt + self._inner(tgt, generator))

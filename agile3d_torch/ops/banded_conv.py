@@ -1,7 +1,7 @@
 """Banded k3 sparse conv: hand-written CUDA kernels for Hopper
 (``csrc/banded_conv.cu``) and their plain PyTorch versions.
 
-    y[i] = sum_j bf16(x[k3[i, j]]) @ bf16(w[j]),  f32 accumulation, f32 out
+    y[i] = sum_j bf16(x[k3[i, j]]) @ bf16(w[j]),  f32 accumulation
 
 Replaces the JAX package's ``ops/banded_conv.py::_make_kernel`` (called through
 ``banded_conv``). The TPU kernel stages a window of sorted rows in VMEM and
@@ -54,15 +54,23 @@ def banded_conv_reference(x: torch.Tensor, k3: torch.Tensor,
     return gather_gemm_bf16(x, k3, w)
 
 
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def is_bf16(t: torch.Tensor) -> int:
+    """The kernels' dtype flag of an operand: 1 for bf16, 0 for f32."""
+    return int(t.dtype == torch.bfloat16)
+
+
 def _check_operands(x, nbr, other, what: str) -> None:
     """Device, type, contiguity and row-count checks shared by the
-    wrappers: x [N, cin] and ``other`` f32, the map int32, all contiguous
-    on one CUDA device."""
+    wrappers: x [N, cin] and ``other`` each float32 or bfloat16, the map
+    int32, all contiguous on one CUDA device."""
     if not (x.is_cuda and nbr.device == x.device and other.device == x.device):
         raise ValueError(f"x, the map and {what} must be on one CUDA device")
-    if x.dtype != torch.float32 or other.dtype != torch.float32:
-        raise TypeError(f"x and {what} must be float32, got {x.dtype}, "
-                        f"{other.dtype}")
+    if x.dtype not in OPERAND_DTYPES or other.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"x and {what} must be float32 or bfloat16, got "
+                        f"{x.dtype}, {other.dtype}")
     if nbr.dtype != torch.int32:
         raise TypeError(f"the neighbour map must be int32, got {nbr.dtype}")
     if not (x.is_contiguous() and nbr.is_contiguous() and other.is_contiguous()):
@@ -107,21 +115,23 @@ def weight_image_numel(k: int, cin: int, cout: int) -> int:
 def _lib():
     lib = cuda_build.load("banded_conv")
     fn = lib.agile3d_banded_conv
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]
     fn.restype = _I
     return fn
 
 
 def banded_conv(x: torch.Tensor, k3: torch.Tensor, w: torch.Tensor, *,
                 transposed: bool = False) -> torch.Tensor:
-    """Banded k3 conv. x [N, cin] f32, k3 [N, K] int32 (-1 absent),
-    w [K, cin, cout] f32 -> [N, cout] f32. With ``transposed``, w is a
-    forward conv's [K, cout, cin] weights and the conv uses
-    ``flip(w, 0).transpose(1, 2)`` (the dX of that forward)."""
+    """Banded k3 conv. x [N, cin], k3 [N, K] int32 (-1 absent),
+    w [K, cin, cout] -> [N, cout] in x's dtype (the f32 sum cast, as the
+    JAX package's ``_conv3`` casts the TPU kernel's); x and w each float32
+    or bfloat16. With ``transposed``, w is a forward conv's [K, cout, cin]
+    weights and the conv uses ``flip(w, 0).transpose(1, 2)`` (the dX of
+    that forward)."""
     if x.device.type == "cpu":
         if transposed:
             w = w.flip(0).transpose(1, 2)
-        return banded_conv_reference(x, k3, w)
+        return banded_conv_reference(x, k3, w).to(x.dtype)
     _check(x, k3, w, transposed=transposed)
     n, cin = x.shape
     k, cout = w.shape[0], w.shape[1 if transposed else 2]
@@ -135,11 +145,11 @@ def banded_conv(x: torch.Tensor, k3: torch.Tensor, w: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), k3.data_ptr(), w.data_ptr(), y.data_ptr(),
                 xb.data_ptr(), wimg.data_ptr(), n, k, cin, cinp, cout,
-                int(transposed), stream)
+                int(transposed), is_bf16(x), is_bf16(w), stream)
     if rc != 0:
         raise RuntimeError(f"banded_conv kernel launch failed: CUDA error {rc}")
     banded_conv.launches += 1
-    return y
+    return y.to(x.dtype)
 
 
 banded_conv.launches = 0
@@ -195,16 +205,16 @@ def row_image_numel(n: int, cout: int) -> int:
 def _lib_dw():
     lib = cuda_build.load("banded_conv")
     fn = lib.agile3d_banded_conv_dw
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 7 + [_I] * 8 + [_P]
     fn.restype = _I
     return fn
 
 
 def banded_conv_dw(x: torch.Tensor, k3: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of the banded k3 conv. x [N, cin] f32, k3 [N, K]
-    int32 (-1 absent), g [N, cout] f32 -> dw [K, cin, cout] f32."""
+    """Weight gradient of the banded k3 conv. x [N, cin], k3 [N, K] int32
+    (-1 absent), g [N, cout], x and g each float32 or bfloat16 -> dw [K,
+    cin, cout] f32."""
     if x.device.type == "cpu":
         return banded_conv_dw_reference(x, k3, g)
     _check_operands(x, k3, g, "g")
@@ -228,7 +238,7 @@ def banded_conv_dw(x: torch.Tensor, k3: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), k3.data_ptr(), g.data_ptr(), dw.data_ptr(),
                 xb.data_ptr(), gimg.data_ptr(), part.data_ptr(), n, k, cin,
-                cinp, cout, chunk, stream)
+                cinp, cout, chunk, is_bf16(x), is_bf16(g), stream)
     if rc != 0:
         raise RuntimeError(f"banded_conv_dw kernel launch failed: CUDA error {rc}")
     banded_conv_dw.launches += 1
@@ -250,7 +260,9 @@ class BandedConv(torch.autograd.Function):
            by its weight cast: no copy);
       dW = banded_conv_dw(x, k3, g).
 
-    CPU tensors take the plain versions of both kernels."""
+    dX comes back in x's dtype and dW in w's, as the JAX package's VJP
+    casts them (``ops/banded_conv.py``'s ``bwd``). CPU tensors take the
+    plain versions of both kernels."""
 
     @staticmethod
     def forward(ctx, x, k3, w):
@@ -263,7 +275,7 @@ class BandedConv(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = banded_conv(g, k3, w, transposed=True)
+            dx = banded_conv(g, k3, w, transposed=True).to(x.dtype)
         if ctx.needs_input_grad[2]:
-            dw = banded_conv_dw(x, k3, g)
+            dw = banded_conv_dw(x, k3, g).to(w.dtype)
         return dx, None, dw

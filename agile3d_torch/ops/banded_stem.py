@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from agile3d_torch.ops import cuda_build
-from agile3d_torch.ops.banded_conv import _check, gather_gemm_bf16
+from agile3d_torch.ops.banded_conv import _check, gather_gemm_bf16, is_bf16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KVOL = 125
@@ -61,7 +61,7 @@ def banded_stem_conv_reference(x: torch.Tensor, k5: torch.Tensor,
 
 def _lib():
     lib = cuda_build.load("banded_stem")
-    lib.agile3d_banded_stem_prep.argtypes = [_P] * 4 + [_I, _I, _P]
+    lib.agile3d_banded_stem_prep.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.agile3d_banded_stem.argtypes = [_P] * 4 + [_I, _I, _P]
     lib.agile3d_banded_stem_prep.restype = lib.agile3d_banded_stem.restype = _I
     return lib
@@ -73,9 +73,10 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def stem_prep(x: torch.Tensor, w: torch.Tensor):
-    """The kernel's operands, from one prep launch on x's device: x as bf16
-    rows padded to 4 channels with a zero row after them ([N + 1, 4]) and
-    w as the swizzled weight image (``stem_weight_image_numel(cout)``)."""
+    """The kernel's operands, from one prep launch on x's device: x (f32
+    or bf16) as bf16 rows padded to 4 channels with a zero row after them
+    ([N + 1, 4]) and w (f32 or bf16) as the swizzled weight image
+    (``stem_weight_image_numel(cout)``)."""
     n, cout = x.shape[0], w.shape[2]
     xb = torch.empty((n + 1, 4), dtype=torch.bfloat16, device=x.device)
     wimg = torch.empty(stem_weight_image_numel(cout), dtype=torch.bfloat16,
@@ -84,16 +85,18 @@ def stem_prep(x: torch.Tensor, w: torch.Tensor):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(_lib().agile3d_banded_stem_prep(
             x.data_ptr(), w.data_ptr(), xb.data_ptr(), wimg.data_ptr(), n,
-            cout, stream), "banded_stem prep")
+            cout, is_bf16(x), is_bf16(w), stream), "banded_stem prep")
     return xb, wimg
 
 
 def banded_stem_conv(x: torch.Tensor, k5: torch.Tensor,
                      w: torch.Tensor) -> torch.Tensor:
-    """k5 stem conv. x [N, 3] f32, k5 [N, 125] int32 (-1 absent, 16-byte
-    aligned), w [125, 3, cout] f32 -> [N, cout] f32."""
+    """k5 stem conv. x [N, 3], k5 [N, 125] int32 (-1 absent, 16-byte
+    aligned), w [125, 3, cout], x and w each float32 or bfloat16 -> [N,
+    cout] in x's dtype (the f32 sum cast, as the JAX package's
+    ``backbone_forward`` casts the TPU kernel's)."""
     if x.device.type == "cpu":
-        return banded_stem_conv_reference(x, k5, w)
+        return banded_stem_conv_reference(x, k5, w).to(x.dtype)
     _check(x, k5, w, k_expect=KVOL)
     if x.shape[1] != 3:
         raise ValueError(f"the stem kernel takes 3 input channels, got {x.shape[1]}")
@@ -109,7 +112,7 @@ def banded_stem_conv(x: torch.Tensor, k5: torch.Tensor,
             xb.data_ptr(), k5.data_ptr(), wimg.data_ptr(), y.data_ptr(), n,
             cout, stream), "banded_stem kernel")
     banded_stem_conv.launches += 1
-    return y
+    return y.to(x.dtype)
 
 
 banded_stem_conv.launches = 0

@@ -216,6 +216,8 @@ def banded_window_conv(x: torch.Tensor, k3: torch.Tensor, plan: WindowPlan,
     if x.device.type == "cpu":
         return banded_window_conv_reference(x, k3, plan, w)
     _check(x, k3, w)
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"x and w must be float32, got {x.dtype}, {w.dtype}")
     n, cin = x.shape
     k, _, cout = w.shape
     arrays = (plan.start, plan.length, plan.order, plan.bounds)

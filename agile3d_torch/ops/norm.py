@@ -1,4 +1,9 @@
-"""Masked normalization (counterpart of the JAX package's ``ops/norm.py``)."""
+"""Masked normalization (counterpart of the JAX package's ``ops/norm.py``).
+
+Dtypes are JAX's: eval-mode BatchNorm of a bf16 x against f32 running
+statistics promotes to f32; training-mode BatchNorm computes the batch
+statistics and its output in x's dtype (bf16 for a bf16 x) and the new
+running statistics in f32."""
 
 from __future__ import annotations
 

@@ -1,7 +1,19 @@
 """Sparse convolutions as gather-GEMM over precomputed kernel maps, in plain
-float32 PyTorch (counterpart of the XLA ops in the JAX package's
+PyTorch (counterpart of the XLA ops in the JAX package's
 ``ops/sparse_conv.py``; the strip, factored and z-dilated forms there are
 the same math shaped for the TPU and have no counterpart here).
+
+Dtypes follow JAX's: the operands are promoted to one dtype (an f32 x
+against bf16 weights runs in f32, as ``jnp.promote_types`` has it), and
+the output is in that dtype. A conv of bf16 operands sums its products in
+f32 and rounds once to bf16, as the banded kernels do. The JAX package
+keeps a bf16 running sum over its scan or strip steps (``_SCAN_GROUP``
+offsets a step, or one strip group), whose step count depends on the TPU
+routing; summing per offset in bf16 instead (27 roundings of a k3 conv,
+125 of the stem) was measured (PERF.md): within the CPU tests'
+bound of JAX's bf16 maps, but on the card the training step's loss moved
+22% from f32's (the stem's 125 roundings), against 2.4% with one
+rounding.
 
 Zero-pad invariant: feature arrays carry zero rows beyond the valid count,
 and every op that could break that (bias add, normalization) re-masks.
@@ -11,6 +23,13 @@ Maps are int32 with -1 for an absent neighbor.
 from __future__ import annotations
 
 import torch
+
+
+def promoted(x: torch.Tensor, w: torch.Tensor):
+    """x and w in their promoted dtype (``jnp.promote_types``'s for the
+    float32 / bfloat16 pair)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
 
 
 def _with_zero_row(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +48,12 @@ def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     """out[m] = sum_k x[nbr[m, k]] @ w[k] (+ bias), absent neighbors add 0.
 
     x [N, C_in] (zero pad rows); nbr [M, K]; w [K, C_in, C_out] in
-    ``kernel_offsets`` order; valid [M] is required with a bias."""
+    ``kernel_offsets`` order; valid [M] is required with a bias. bf16
+    operands: the sum in f32, rounded once."""
+    x, w = promoted(x, w)
+    if x.dtype == torch.bfloat16:
+        return sparse_conv(x.float(), nbr, w.float(), bias,
+                           valid).to(torch.bfloat16)
     xz = _with_zero_row(x)
     idx = nbr.long()
     acc = xz[idx[:, 0]] @ w[0]
@@ -51,6 +75,7 @@ def sparse_conv_transpose(x_coarse: torch.Tensor, up_parent: torch.Tensor,
     voxel receives exactly its parent's row through kernel element
     ``up_offset``. x_coarse [N_c, C_in]; up_parent/up_offset [N_f];
     w [8, C_in, C_out]. Pad rows (up_parent == -1) come out 0."""
+    x_coarse, w = promoted(x_coarse, w)
     g = masked_gather(x_coarse, up_parent)
     off = up_offset.long()
     acc = torch.zeros((g.shape[0], w.shape[2]), dtype=g.dtype, device=g.device)
@@ -62,6 +87,7 @@ def sparse_conv_transpose(x_coarse: torch.Tensor, up_parent: torch.Tensor,
 def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
            valid: torch.Tensor | None = None) -> torch.Tensor:
     """1x1 sparse conv == per-row linear; w [C_in, C_out]."""
+    x, w = promoted(x, w)
     y = x @ w
     if bias is not None:
         assert valid is not None, "bias add requires a validity mask"

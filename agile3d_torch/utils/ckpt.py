@@ -8,6 +8,14 @@ MinkowskiEngine's offset order and are reordered into ``kernel_offsets``
 order with ``ME_KERNEL_PERM``. This is the layout that
 the JAX package's ``utils/ckpt.py::export_torch_state_dict`` writes and the
 released ``checkpoint1099.pth`` holds (its ``"model"`` entry).
+
+Training writes resumable checkpoints: ``{"model": that state dict,
+"optimizer": Optimizer.state_dict(), "epoch": e}``, the shape of the
+reference's own per-epoch dict (reference main.py:190-202).
+``load_training_checkpoint`` restores one whole, and takes any other
+``.pth`` (the released one among them) as weights alone.
+``optimizer_state_from_optax`` carries the JAX package's optax AdamW state
+across to the port's optimizer.
 """
 
 from __future__ import annotations
@@ -69,12 +77,64 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> None:
     load_reference_state_dict(model, ckpt.get("model", ckpt))
 
 
-def save_checkpoint(path: str, model: torch.nn.Module, epoch: int) -> None:
-    """Write ``{"model": reference-layout state dict, "epoch": epoch}`` to
-    ``path`` (a ``.pth`` that ``load_checkpoint`` and the reference read).
-    The optimizer's state is not saved."""
+def save_checkpoint(path: str, model: torch.nn.Module, epoch: int,
+                    optimizer=None) -> None:
+    """Write ``{"model": reference-layout state dict, "epoch": epoch}``,
+    with ``"optimizer": optimizer.state_dict()`` (on the CPU) when an
+    optimizer is given, to ``path`` (a ``.pth`` that ``load_checkpoint``
+    and the reference read) by a temporary file and a rename, so that a
+    run cut mid-write leaves the previous file whole."""
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
           for k, v in export_reference_state_dict(model).items()}
+    ckpt = {"model": sd, "epoch": int(epoch)}
+    if optimizer is not None:
+        state = optimizer.state_dict()
+        ckpt["optimizer"] = {
+            "count": state["count"],
+            "params": {n: {k: v.detach().cpu() for k, v in st.items()}
+                       for n, st in state["params"].items()}}
     tmp = f"{path}.tmp"
-    torch.save({"model": sd, "epoch": int(epoch)}, tmp)
+    torch.save(ckpt, tmp)
     os.replace(tmp, path)
+
+
+def load_training_checkpoint(path: str, model: torch.nn.Module,
+                             optimizer) -> int | None:
+    """Resume from ``path``. A resumable checkpoint (one with an
+    ``"optimizer"`` entry) restores the weights and BatchNorm statistics,
+    the optimizer's state and returns the epoch it was written after; any
+    other ``.pth`` loads the weights alone (the JAX package's ``.pth``
+    branch), leaves the optimizer as it is and returns None."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    load_reference_state_dict(model, ckpt.get("model", ckpt))
+    if "optimizer" not in ckpt:
+        return None
+    optimizer.load_state_dict(ckpt["optimizer"])
+    return int(ckpt["epoch"])
+
+
+def optimizer_state_from_optax(model: torch.nn.Module, count: int, mu: dict,
+                               nu: dict) -> dict:
+    """The port's ``Optimizer.state_dict()`` for ``model`` from the JAX
+    package's optimizer state (``make_optimizer``'s
+    ``chain(clip_by_global_norm, adamw(schedule))``): ``count``, its update
+    count (the adam stage's ``count``, which the schedule's equals), and
+    ``mu`` / ``nu``, its first and second moments in the reference
+    state-dict layout (``export_torch_state_dict`` of the moment trees:
+    they are shaped like the parameters). Each moment is keyed and
+    reordered as ``load_reference_state_dict`` keys and reorders that
+    parameter."""
+    params = {}
+    for name, p in model.named_parameters():
+        moments = []
+        for ref in (mu, nu):
+            t = torch.from_numpy(np.array(ref[name], np.float32))
+            if _is_sparse_kernel(name, t):
+                t = t[torch.as_tensor(ME_KERNEL_PERM[t.shape[0]])]
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: moment shape {tuple(t.shape)} != "
+                                 f"{tuple(p.shape)}")
+            moments.append(t)
+        params[name] = {"step": torch.tensor(float(count)),
+                        "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+    return {"count": int(count), "params": params}

@@ -98,6 +98,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 + 1 stem launches per eval backbone forward, 16 k3 + 8 dW
                 per supervised step.
 
+The tenth slice (resumable training, decoder dropout, the bf16 backbone)
+adds: in the kernels phase, the main paths' B1, B2 and B3 shapes again
+with bf16 operands (roles ``bf16 *``), each launch equal bit for bit to
+the f32 launch on the same values and timed beside it; after the training
+reference (whose supervised step it reuses),
+  bf16 backbone -- ``backbone_dtype="bfloat16"``: the eval
+                ``forward_backbone`` on the smoke scene, kernels on and off
+                (8 k3 + 1 stem launches, f32 FPN maps), one
+                ``forward_mask``'s labels against the f32 backbone's, the
+                backbone's ms against f32's, and one supervised step on the
+                training reference batch against the CPU's f32 step;
+  dropout -- one supervised step at ``--dropout 0.1`` on that batch: dense
+                attention where the rate-0 step chunks, a loss of its own,
+                two steps from one seed equal, time and peak memory;
+in the training main path, one step of its 524,288-row batch with the
+bf16 backbone (24 k3 + 8 dW launches, against the f32 step from the same
+weights) and one at ``--dropout 0.1`` (dense, its peak memory), and the
+validation's loss meter; and after the device-rollout step,
+  resume -- ``python -m agile3d_torch.main`` (in process) for one epoch on
+                the training reference scenes, then ``--resume`` its
+                ``checkpoint.pth`` with ``--epochs 2``: it starts at epoch 1,
+                the weights, BatchNorm statistics and optimizer state
+                restored bit for bit, launches per step as the routing rule
+                gives them.
+
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -317,14 +342,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbr, cin: int, cout: int) -> tuple[float, str]:
+def bound(nbr, cin: int, cout: int, x_bytes: int = 4, w_bytes: int = 4,
+          y_bytes: int = 4) -> tuple[float, str]:
     """Least time for y = sum_j bf16(x[nbr[:, j]]) @ bf16(w[j]) on the card:
-    each input read once and the output written once, against the products
-    this map's present neighbours need at the bf16 tensor-core peak."""
+    each input read once (x, w and y at the given element sizes, the map
+    int32) and the output written once, against the products this map's
+    present neighbours need at the bf16 tensor-core peak."""
     n, k = nbr.shape
     nnz = int((nbr >= 0).sum())
     flops = 2.0 * nnz * cin * cout
-    nbytes = 4.0 * (n * cin + n * k + k * cin * cout + n * cout)
+    nbytes = (x_bytes * n * cin + 4.0 * n * k + w_bytes * k * cin * cout
+              + y_bytes * n * cout)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -395,11 +423,20 @@ def kernel_cases(eval_pyr, train_pyr, ref_pyr):
     for cin, cout in VARIANT_BACKWARD:
         cases += [("banded_conv", "variant dX", lv, cout, cin, 1),
                   ("banded_conv_dw", "variant dW", lv, cin, cout, 1)]
+    # the main paths' shapes again with bf16 operands (the bf16 backbone):
+    # B1 and B2 at the eval forward's, B1 forward and dX and B3 at the
+    # training step's
+    cases += [(name, f"bf16 {role}", lv, cin, cout, count)
+              for name, role, lv, cin, cout, count in list(cases)
+              if role in ("eval", "train forward", "dX", "dW")]
     return cases
 
 
 def phase_kernels(torch, cases):
-    """Kernel vs plain version on the card at the main paths' shapes."""
+    """Kernel vs plain version on the card at the main paths' shapes. A
+    ``bf16 *`` role takes bf16 x and w (or g): its launch must equal the
+    f32 launch on the same values bit for bit (a bf16 operand casts to
+    itself), and that launch's time is kept beside it."""
     from agile3d_torch.ops.banded_conv import (
         banded_conv,
         banded_conv_dw,
@@ -419,6 +456,7 @@ def phase_kernels(torch, cases):
     rows = []
     for name, role, lv, cin, cout, count in cases:
         kern, plain = fns[name]
+        bf16 = role.startswith("bf16")
         nbr = lv.k5 if name == "banded_stem" else lv.k3
         n, k = nbr.shape
         x = torch.randn((n, cin), generator=g, device=DEVICE)
@@ -428,7 +466,7 @@ def phase_kernels(torch, cases):
             # the cotangent of the conv's output: zero on pad rows
             other = torch.randn((n, cout), generator=g, device=DEVICE)
             other[lv.num_valid:] = 0.0
-        elif role in ("dX", "variant dX"):
+        elif role.endswith("dX"):
             # as BandedConv's backward calls it: the forward's [k, cout,
             # cin] weights, read as flip(w, 0).transpose(1, 2)
             other = torch.randn((k, cout, cin), generator=g, device=DEVICE) \
@@ -437,17 +475,31 @@ def phase_kernels(torch, cases):
         else:
             other = torch.randn((k, cin, cout), generator=g, device=DEVICE) \
                 * (k * cin) ** -0.5
+        if bf16:
+            x32, other32 = x.to(torch.bfloat16).float(), other.to(
+                torch.bfloat16).float()
+            x, other = x.to(torch.bfloat16), other.to(torch.bfloat16)
         run = lambda: kern(x, nbr, other, **opts)
         plain_other = other.flip(0).transpose(1, 2) if opts else other
         y = run()
         ref = plain(x, nbr, plain_other)
         torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
+        err = float((y.float() - ref).abs().max())
         ref_max = float(ref.abs().max())
-        tol = 1e-3 * (ref_max + 1.0)
+        # and one bf16 rounding of a bf16 output
+        tol = 1e-3 * (ref_max + 1.0) + (2.0 ** -8 * ref_max
+                                        if y.dtype == torch.bfloat16 else 0.0)
         tag = f"{name} ({role}) {n}x{cin}->{cout}"
         check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
         check(err <= tol, f"{tag}: max|kernel - plain| {err} > {tol}")
+        if bf16:
+            run32 = lambda: kern(x32, nbr, other32, **opts)
+            y32 = run32()
+            check(y.dtype == (torch.float32 if name == "banded_conv_dw"
+                              else torch.bfloat16), f"{tag}: dtype {y.dtype}")
+            check(torch.equal(y, y32.to(y.dtype)),
+                  f"{tag}: the bf16 launch differs from the f32 launch on "
+                  f"the same values")
         if name != "banded_conv_dw" and n > lv.num_valid:
             pad_max = float(y[lv.num_valid:].abs().max())
             check(pad_max == 0.0, f"{tag}: pad rows {pad_max}")
@@ -462,7 +514,11 @@ def phase_kernels(torch, cases):
         else:
             ob = plain_other.to(torch.bfloat16).reshape(k * cin, cout)
             lib = time_ms(torch, lambda: xz[idx].view(n, k * cin) @ ob)
-        b_ms, b_by = bound(nbr, cin, cout)
+        # bf16: x, w (or g) and a conv's output in 2 bytes, dW's in 4
+        sizes = ({} if not bf16 else dict(x_bytes=2, w_bytes=4, y_bytes=2)
+                 if name == "banded_conv_dw"
+                 else dict(x_bytes=2, w_bytes=2, y_bytes=2))
+        b_ms, b_by = bound(nbr, cin, cout, **sizes)
         row = dict(kernel=name, role=role, rows=n, cin=cin, cout=cout,
                    count=count, num_valid=lv.num_valid, max_abs_err=err,
                    ref_max=ref_max, tol=tol,
@@ -473,6 +529,10 @@ def phase_kernels(torch, cases):
         if name == "banded_stem":
             # the cast of x and w that each call runs first (in ms)
             row["prep_ms"] = time_ms(torch, lambda: stem_prep(x, other))
+        if bf16:
+            row.update(dtype="bfloat16", bit_equal_f32=True,
+                       f32_ms=time_ms(torch, run32))
+            del x32, other32, y32
         emit({"phase": "kernel_parity", **row})
         rows.append(row)
         del x, other, plain_other, y, ref, xz, idx, ob
@@ -1419,7 +1479,7 @@ def phase_train_reference(torch, tmp):
         make_train_step,
         prepare_batch,
     )
-    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.models.agile3d import Agile3D, init_agile3d
     from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
     from agile3d_torch.ops.banded_stem import banded_stem_conv
     from agile3d_torch.sparse.grid import to_device
@@ -1433,23 +1493,43 @@ def phase_train_reference(torch, tmp):
     clicks = _train_clicks(torch, labels, num_obj)
     model0 = init_agile3d(cfg.model, seed=0, device="cpu")
 
-    def run(device, banded):
-        model = copy.deepcopy(model0).to(device)
+    def run(device, banded, backbone_dtype="float32", dropout=0.0,
+            seed=None):
+        """One supervised step; ``seed`` seeds the dropout generator."""
+        mcfg = dataclasses.replace(model0.cfg, backbone_dtype=backbone_dtype,
+                                   dropout=dropout)
+        model = Agile3D(mcfg)
+        model.load_state_dict(model0.state_dict())
+        model = model.to(device)
         model.backbone.cfg = dataclasses.replace(model.backbone.cfg,
                                                  banded_conv=banded)
-        opt, _ = make_optimizer(model, cfg, 1)
-        step = make_train_step(cfg, model, opt)
+        scfg = dataclasses.replace(cfg, model=mcfg)
+        opt, _ = make_optimizer(model, scfg, 1)
+        step = make_train_step(scfg, model, opt)
+        gen = (None if seed is None
+               else torch.Generator(device=device).manual_seed(seed))
         dev_batch = (to_device(batch.pyramid, device),
                      *(torch.from_numpy(a).to(device)
                        for a in (batch.feats, batch.raw, batch.sample_idx)))
         banded_conv.launches = banded_conv_dw.launches = 0
         banded_stem_conv.launches = 0
-        out = step(dev_batch, type(clicks)(*(t.to(device) for t in clicks)),
-                   torch.from_numpy(labels).to(device),
-                   torch.from_numpy(num_obj).to(device))
         if device != "cpu":
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if device != "cpu":
+            start.record()
+        out = step(dev_batch, type(clicks)(*(t.to(device) for t in clicks)),
+                   torch.from_numpy(labels).to(device),
+                   torch.from_numpy(num_obj).to(device), gen)
+        step_ms = peak = None
+        if device != "cpu":
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
         return dict(
+            step_ms=step_ms, peak_gib=peak, attn_chunk=out["attn_chunk"],
             loss=float(out["loss"]), gnorm=float(out["gnorm"]),
             losses={k: float(v) for k, v in out["losses"].items()},
             grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
@@ -1564,6 +1644,248 @@ def phase_train_reference(torch, tmp):
     check(q["grad_cos_all"] >= 0.95,
           f"card kernels vs CPU f32: gradient cosine {q['grad_cos_all']}")
     check(q["bn_err"] <= 1e-3, f"card kernels vs CPU f32: BN {q['bn_err']}")
+    return run, compare, n_lv
+
+
+def phase_bf16_backbone(torch, batch, train_run, train_compare, n_lv):
+    """``backbone_dtype="bfloat16"`` at full width: the eval
+    ``forward_backbone`` on the smoke scene with the kernels on and off
+    (launches, FPN dtypes, backbone ms against the f32 backbone's), the
+    labels of one ``forward_mask`` after it against the f32 backbone's;
+    then one supervised step on the training reference batch with the
+    kernels on, held against the CPU's f32 step."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.models.agile3d import Agile3D, init_agile3d
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+
+    t0 = time.time()
+    cfg = Config().model
+    m32 = init_agile3d(cfg, seed=0, device=DEVICE)
+    m16 = Agile3D(dataclasses.replace(cfg, backbone_dtype="bfloat16"))
+    m16.load_state_dict(m32.state_dict())
+    m16 = m16.to(DEVICE).eval()
+    inputs = _model_inputs(torch, batch)
+    clicks = _train_clicks(torch, batch.labels, batch.num_obj)
+    clicks = type(clicks)(*(t.to(DEVICE) for t in clicks))
+    num_obj = torch.from_numpy(batch.num_obj).to(DEVICE)
+    kernels_on = m16.backbone.cfg
+    with torch.no_grad():
+        zero_launches()
+        s16 = m16.forward_backbone(*inputs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        fpn = m16.backbone(inputs[0], inputs[1], None,
+                           compute_dtype=torch.bfloat16)
+        dtypes = [str(f.dtype).replace("torch.", "") for f in fpn]
+        del fpn
+        m16.backbone.cfg = dataclasses.replace(kernels_on, banded_conv=False)
+        zero_launches()
+        s16_plain = m16.forward_backbone(*inputs)
+        plain_launches = read_launches()
+        m16.backbone.cfg = kernels_on
+        s32 = m32.forward_backbone(*inputs)
+        p16 = m16.forward_mask(s16, clicks, num_obj)["pred_masks"].argmax(-1)
+        p32 = m32.forward_mask(s32, clicks, num_obj)["pred_masks"].argmax(-1)
+        valid = s32.vox_valid
+        agree = float((p16 == p32)[valid].float().mean())
+        err_plain, scale_plain = _rel(s16.mask_feat, s16_plain.mask_feat)
+        err_f32, scale_f32 = _rel(s16.mask_feat, s32.mask_feat)
+        ms16 = time_ms(torch, lambda: m16.forward_backbone(*inputs), reps=5)
+        ms32 = time_ms(torch, lambda: m32.forward_backbone(*inputs), reps=5)
+    del m16, m32, s16, s16_plain, s32, p16, p32
+    torch.cuda.empty_cache()
+
+    step = train_run(DEVICE, True, backbone_dtype="bfloat16")
+    res = train_compare(step)
+    row = {"phase": "bf16_backbone", "eval_launches": launches,
+           "eval_plain_launches": plain_launches, "fpn_dtypes": dtypes,
+           "mask_feat_kernels_vs_plain": err_plain,
+           "mask_feat_plain_scale": scale_plain,
+           "mask_feat_vs_f32": err_f32, "mask_feat_f32_scale": scale_f32,
+           "labels_agree_vs_f32": agree, "backbone_ms": ms16,
+           "backbone_f32_ms": ms32, "train_step_ms": step["step_ms"],
+           "train_peak_gib": step["peak_gib"],
+           **{f"train_{k}": v for k, v in res.items()},
+           "seconds": time.time() - t0}
+    emit(row)
+    total = {k: v + (dict(zip(("banded_conv", "banded_conv_dw",
+                                "banded_stem"), step["launches"])).get(k, 0))
+             for k, v in launches.items()}
+    check(launches["banded_conv"] == 8 and launches["banded_stem"] == 1,
+          f"bf16 eval backbone launches {launches}")
+    check(plain_launches["banded_conv"] == plain_launches["banded_stem"] == 0,
+          f"kernels off, launches {plain_launches}")
+    check(dtypes == ["float32"] * 5, f"bf16 eval FPN dtypes {dtypes}")
+    # the kernels round the f32 x of a routed conv to bf16 where the plain
+    # conv multiplies it by the bf16 weights in f32
+    check(err_plain <= 2e-2 * scale_plain,
+          f"bf16 backbone, kernels vs plain: {err_plain} of {scale_plain}")
+    check(agree >= 0.95, f"bf16 backbone labels agree {agree} with f32's")
+    check(step["launches"] == (8 * n_lv, 4 * n_lv, 0),
+          f"bf16 training step launches {step['launches']}")
+    check(math.isfinite(res["loss"]) and math.isfinite(res["gnorm"]),
+          "bf16 training step: non-finite loss or gnorm")
+    # bf16 batch statistics and roundings in every layer turn the step
+    # (an earlier call measured 0.734 on the card, 0.729 for the port's
+    # bf16 step on the CPU); the limit says only that it points the f32
+    # step's way (random directions in 39M dimensions have cosine ~0)
+    check(res["grad_cos_all"] >= 0.5,
+          f"bf16 training step vs CPU f32: gradient cosine "
+          f"{res['grad_cos_all']}")
+    return total
+
+
+def phase_dropout(torch, train_run, n_lv):
+    """One supervised step at ``--dropout 0.1`` at full width on the
+    training reference batch (kernels on): dense attention (chunk 0) where
+    the rate-0 step chunks, a finite loss other than the rate-0 step's, and
+    two steps from one generator seed equal; time and peak memory, and the
+    logits volume the 524,288-row training batch would hold densely."""
+    t0 = time.time()
+    rate0 = train_run(DEVICE, True)
+    first = train_run(DEVICE, True, dropout=0.1, seed=7)
+    again = train_run(DEVICE, True, dropout=0.1, seed=7)
+    same = (first["loss"] == again["loss"]
+            and all(torch.equal(first["grads"][n], g)
+                    for n, g in again["grads"].items()))
+    # one dense logits tensor of the main training batch (measured in the
+    # train main path): batch 5, 8 heads, 10 background + 64 click
+    # queries, 98,304 rows a sample, f32
+    dense_gib = 5 * 8 * 74 * 98304 * 4 / 2 ** 30
+    row = {"phase": "dropout", "chunk": first["attn_chunk"],
+           "rate0_chunk": rate0["attn_chunk"], "loss": first["loss"],
+           "rate0_loss": rate0["loss"], "gnorm": first["gnorm"],
+           "seeded_steps_equal": same, "step_ms": first["step_ms"],
+           "rate0_step_ms": rate0["step_ms"], "peak_gib": first["peak_gib"],
+           "rate0_peak_gib": rate0["peak_gib"],
+           "launches": first["launches"],
+           "main_batch_dense_logits_gib": dense_gib,
+           "seconds": time.time() - t0}
+    emit(row)
+    check(first["attn_chunk"] == 0 and rate0["attn_chunk"] > 0,
+          f"dropout chunk {first['attn_chunk']}, rate 0 {rate0['attn_chunk']}")
+    check(math.isfinite(first["loss"]) and first["loss"] != rate0["loss"],
+          f"dropout loss {first['loss']} vs rate 0 {rate0['loss']}")
+    check(same, "two dropout steps from one seed differ")
+    check(first["launches"] == (8 * n_lv, 4 * n_lv, 0),
+          f"dropout step launches {first['launches']}")
+    names = ("banded_conv", "banded_conv_dw", "banded_stem")
+    return {name: sum(r["launches"][i] for r in (rate0, first, again))
+            for i, name in enumerate(names)}
+
+
+def phase_resume(torch, tmp):
+    """``python -m agile3d_torch.main`` (in process) at full width on the
+    training reference scenes: one epoch (``--epochs 1``, whose last epoch
+    writes the rolling checkpoint), then ``--resume`` that checkpoint with
+    ``--epochs 2``: it starts at epoch 1, restores the weights, BatchNorm
+    statistics and optimizer state bit for bit and runs one more epoch;
+    launches per step as the routing rule gives them."""
+    from agile3d_torch import main as pmain
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
+    from agile3d_torch.data.synthetic import write_benchmark
+    from agile3d_torch.utils.ckpt import export_reference_state_dict
+
+    t0 = time.time()
+    scans, lst = write_benchmark(os.path.join(tmp, "resume"),
+                                 **TRAIN_REF_SCENES)
+    ds = InterMultiObjDataset(scans, lst, Config().model.voxel_size)
+    n_lv = _banded_levels(collate_scenes([ds[i] for i in range(len(ds))],
+                                         Config().buckets).pyramid)
+    out_dir = os.path.join(tmp, "resume_out")
+    ckpt_path = os.path.join(out_dir, "checkpoint.pth")
+
+    def opt_state(opt):
+        st = opt.state_dict()
+        return st["count"], {n: {k: v.detach().cpu().clone()
+                                 for k, v in d.items()}
+                             for n, d in st["params"].items()}
+
+    def same_state(a, b):
+        return a[0] == b[0] and a[1].keys() == b[1].keys() and all(
+            torch.equal(a[1][n][k], v) for n, d in b[1].items()
+            for k, v in d.items())
+
+    def same_model(sd, ref):
+        return sd.keys() == ref.keys() and all(
+            np.array_equal(sd[k], np.asarray(v)) for k, v in ref.items())
+
+    def run(*extra):
+        args = pmain.get_args_parser().parse_args([
+            "--scan_folder", scans, "--train_list", lst, "--val_list", lst,
+            "--val_epochs", "50", "--seed", "0", "--output_dir", out_dir,
+            "--device", DEVICE, *extra])
+        zero_launches()
+        t = time.time()
+        hist = pmain.main(args, log=lambda m: print(f"resume: {m}",
+                                                    flush=True))
+        torch.cuda.synchronize()
+        return hist, read_launches(), time.time() - t
+
+    first, launches1, wall1 = run("--epochs", "1")
+    saved = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    saved_opt = (saved["optimizer"]["count"], saved["optimizer"]["params"])
+    wrote_exact = (saved["epoch"] == 0
+                   and same_model({k: v.numpy() for k, v in
+                                   saved["model"].items()},
+                                  export_reference_state_dict(first["model"]))
+                   and same_state(opt_state(first["optimizer"]), saved_opt))
+
+    restored = {}
+    load = pmain.load_training_checkpoint
+
+    def spy(path, model, optimizer):
+        epoch = load(path, model, optimizer)
+        # copies: on the CPU the exported arrays share the weights' memory
+        restored.update(epoch=epoch, lr=optimizer.lr(optimizer.count),
+                        model={k: v.copy() for k, v in
+                               export_reference_state_dict(model).items()},
+                        opt=opt_state(optimizer))
+        return epoch
+
+    pmain.load_training_checkpoint = spy
+    try:
+        second, launches2, wall2 = run("--epochs", "2", "--resume", ckpt_path)
+    finally:
+        pmain.load_training_checkpoint = load
+    restored_exact = (restored["epoch"] == 0
+                      and same_model({k: v.numpy() for k, v in
+                                      saved["model"].items()},
+                                     restored["model"])
+                      and same_state(restored["opt"], saved_opt))
+    after = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    steps = [len(range(0, len(ds), Config().train.batch_size))] * 2
+    per_step = (12 * n_lv, 4 * n_lv, 0)
+    got = [(lc["banded_conv"], lc["banded_conv_dw"], lc["banded_stem"])
+           for lc in (launches1, launches2)]
+    row = {"phase": "resume", "banded_levels": n_lv,
+           "first": {"epochs_run": len(first["epochs"]),
+                     "loss": first["epochs"][0]["loss"], "wall_s": wall1,
+                     "launches": got[0]},
+           "resumed": {"start_epoch": second["start_epoch"],
+                       "epochs_run": len(second["epochs"]),
+                       "loss": second["epochs"][0]["loss"], "wall_s": wall2,
+                       "launches": got[1],
+                       "count": second["optimizer"].count},
+           "restored_lr": restored["lr"], "checkpoint_exact": wrote_exact,
+           "restore_exact": restored_exact,
+           "final_checkpoint_epoch": after["epoch"],
+           "seconds": time.time() - t0}
+    emit(row)
+    check(wrote_exact, "checkpoint.pth does not hold the trained state")
+    check(restored_exact, "--resume did not restore the saved state exactly")
+    check(second["start_epoch"] == 1 and len(second["epochs"]) == 1,
+          f"resumed at epoch {second['start_epoch']}, ran "
+          f"{len(second['epochs'])}")
+    check(second["optimizer"].count == 2 * steps[0] and after["epoch"] == 1,
+          f"after the resumed epoch: count {second['optimizer'].count}, "
+          f"checkpoint epoch {after['epoch']}")
+    for i, lc in enumerate(got):
+        want = tuple(c * steps[i] for c in per_step)
+        check(lc == want, f"resume run {i}: launches {lc} != {want}")
+    return {k: launches1[k] + launches2[k] for k in launches1}
 
 
 def phase_train_main_path(torch, scans, train_list, tmp):
@@ -1608,7 +1930,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
 
     def make_train_step(cfg, model, optimizer):
         inner = orig_make(cfg, model, optimizer)
-        seen["model"] = model
+        seen.update(model=model, cfg=cfg)
 
         def step(device_batch, *args):
             start, end = (torch.cuda.Event(enable_timing=True)
@@ -1617,7 +1939,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
             out = inner(device_batch, *args)
             end.record()
             end.synchronize()
-            seen["batch"] = device_batch
+            seen.update(batch=device_batch, args=args)
             steps[-1].update(step=(start, end), at_step=counts(),
                              rows=[lv.grid.shape[0]
                                    for lv in device_batch[0].levels],
@@ -1692,6 +2014,51 @@ def phase_train_main_path(torch, scans, train_list, tmp):
         del out, cot
     model.zero_grad(set_to_none=True)
 
+    # one training step of the last batch from the trained weights (the
+    # rollout's backbone in training mode without gradients, then the
+    # supervised step): with the bf16 backbone, in f32 beside it, and in
+    # f32 with --dropout 0.1 (dense attention at this batch)
+    clicks, labels, num_obj = seen["args"][:3]
+    bf16_steps = {}
+    for key, dtype, rate in (("bfloat16", "bfloat16", 0.0),
+                             ("float32", "float32", 0.0),
+                             ("dropout", "float32", 0.1)):
+        mcfg = dataclasses.replace(model.cfg, backbone_dtype=dtype,
+                                   dropout=rate)
+        twin = Agile3D(mcfg)
+        twin.load_state_dict(model.state_dict())
+        twin = twin.to(DEVICE)
+        scfg = dataclasses.replace(seen["cfg"], model=mcfg)
+        twin_opt, _ = ptrain.make_optimizer(twin, scfg, 1)
+        twin_step = orig_make(scfg, twin, twin_opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with torch.no_grad():
+            twin.forward_backbone(*seen["batch"], {})
+        out = twin_step(seen["batch"], clicks, labels, num_obj,
+                        torch.Generator(device=DEVICE).manual_seed(7)
+                        if rate else None)
+        end.record()
+        end.synchronize()
+        lc = read_launches()
+        bf16_steps[key] = dict(
+            attn_chunk=out["attn_chunk"],
+            loss=float(out["loss"]), gnorm=float(out["gnorm"]),
+            ms=start.elapsed_time(end),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=(lc["banded_conv"], lc["banded_conv_dw"],
+                      lc["banded_stem"]),
+            grads=torch.cat([p.grad.detach().flatten()
+                             for p in twin.parameters()]).cpu())
+        del twin, twin_opt, twin_step, out
+        torch.cuda.empty_cache()
+    bf16_cos = _cosine(bf16_steps["bfloat16"].pop("grads"),
+                       bf16_steps["float32"].pop("grads"))
+    bf16_steps["dropout"].pop("grads")
+
     row = {"phase": "train_main_path", "steps": len(steps),
            "rows": [st["rows"] for st in steps],
            "clicks": [st["clicks"] for st in steps],
@@ -1712,7 +2079,10 @@ def phase_train_main_path(torch, scans, train_list, tmp):
            "peak_mem_gib": peak_gib, "wall_s": wall_s,
            "params_moved": n_param, "bn_moved": n_bn,
            "checkpoint_loads_equal": ckpt_equal,
-           "val": {k: finite(v) for k, v in hist["val"].get(0, {}).items()}}
+           "val": {k: finite(v) for k, v in hist["val"].get(0, {}).items()},
+           "val_losses": {k: finite(v) for k, v in
+                          hist["val_losses"].get(0, {}).items()},
+           "bf16_step": bf16_steps, "bf16_step_grad_cos_vs_f32": bf16_cos}
     emit(row)
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps != {TRAIN_STEPS}")
     # 98,304-row samples at batch 5: 16,384, 6 chunks (rollout, step, val)
@@ -1729,6 +2099,22 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     check(n_param > 0 and n_bn > 0, f"moved: {n_param} params, {n_bn} BN")
     check(ckpt_equal, "checkpoint.pth does not load back equal")
     check(hist["val"].get(0), "no validation results")
+    val_losses = hist["val_losses"].get(0, {})
+    check(set(val_losses) == {"loss", "loss_bce", "loss_dice"}
+          and all(math.isfinite(v) for v in val_losses.values()),
+          f"validation losses {val_losses}")
+    b16 = bf16_steps["bfloat16"]
+    check(b16["launches"] == (24, 8, 0),
+          f"bf16 training step launches {b16['launches']} != (24, 8, 0)")
+    check(math.isfinite(b16["loss"]) and math.isfinite(b16["gnorm"]),
+          "bf16 training step: non-finite loss or gnorm")
+    # as the bf16 phase's limit against the CPU's f32 step
+    check(bf16_cos >= 0.5, f"bf16 training step vs f32 on the card: "
+                           f"gradient cosine {bf16_cos}")
+    drop = bf16_steps["dropout"]
+    check(drop["attn_chunk"] == 0 and math.isfinite(drop["loss"])
+          and drop["launches"] == (24, 8, 0),
+          f"dropout step of the training batch: {drop}")
     return {"banded_conv": launches[0], "banded_conv_dw": launches[1],
             "banded_stem": launches[2], **probe_launches}
 
@@ -2361,7 +2747,11 @@ def main():
         del eval_dev, train_batch, train_ds, ref_ds, ref_pyr
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
-        phase_train_reference(torch, tmp)
+        train_run, train_compare, n_lv = phase_train_reference(torch, tmp)
+        bf16_launches = phase_bf16_backbone(torch, eval_batch, train_run,
+                                            train_compare, n_lv)
+        dropout_launches = phase_dropout(torch, train_run, n_lv)
+        del train_run, train_compare
         eval_launches = phase_main_path(torch, scans, val_list,
                                         os.path.join(tmp, "out"))
         oversize_launches = phase_oversize(torch, scans, val_list, tmp)
@@ -2375,6 +2765,7 @@ def main():
                                            tmp)
         device_train = phase_train_device_rollout(torch, train_scans,
                                                   train_list, tmp)
+        resume_launches = phase_resume(torch, tmp)
         bench_launches, _ = phase_benches(torch)
 
     meta = kernel_meta()
@@ -2383,6 +2774,8 @@ def main():
              "single": single_launches, "serve": serve_launches,
              "variants": variant_launches,
              "train": host_train, "train_device_rollout": device_train,
+             "bf16_backbone": bf16_launches, "dropout": dropout_launches,
+             "resume": resume_launches,
              "bench": bench_launches["bench"],
              "bench_train": bench_launches["bench_train"]}
     kernels = []
@@ -2410,8 +2803,15 @@ def main():
                 "role", "rows", "cin", "cout", "max_abs_err", "tol", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for r in variant]
+        bf16 = [r for r in mine if r["role"].startswith("bf16")]
+        if bf16:
+            entry["bf16_shapes"] = [{k: r[k] for k in (
+                "role", "rows", "cin", "cout", "count", "max_abs_err", "tol",
+                "bit_equal_f32", "ms", "f32_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for r in bf16]
         if name == "banded_stem":
-            entry["prep_ms"] = sum(r["prep_ms"] * r["count"] for r in mine)
+            entry["prep_ms"] = sum(r["prep_ms"] * r["count"] for r in mine
+                                   if not r["role"].startswith("bf16"))
         if name == "banded_window_conv":
             entry["banded_conv_ms"] = sum(r["banded_conv_ms"] * r["count"]
                                           for r in mine)

@@ -241,3 +241,50 @@ def test_kernel_cases_hold_the_variants_shapes():
         ("banded_conv_dw", "variant dW", 65536, 416, 384),
         ("banded_conv", "variant dX", 65536, 256, 256),
         ("banded_conv_dw", "variant dW", 65536, 256, 256)]
+
+
+def test_kernel_cases_hold_the_bf16_shapes():
+    """Every main-path shape (B1 and B2 at the eval forward's, B1 forward,
+    dX and B3 at the training step's) again with bf16 operands, with the
+    same launches per unit; the variants' shapes are not repeated."""
+    from types import SimpleNamespace
+
+    level = lambda n: SimpleNamespace(rows=n)
+    pyr = lambda *ns: SimpleNamespace(levels=[level(n) for n in ns])
+    cases = chip_smoke.kernel_cases(pyr(196608, 49152), pyr(524288, 98304),
+                                    pyr(65536, 16384))
+    key = lambda c: (c[0], c[2].rows, c[3], c[4], c[5])
+    main = [c for c in cases if c[1] in ("eval", "train forward", "dX", "dW")]
+    bf16 = [c for c in cases if c[1].startswith("bf16 ")]
+    assert [key(c) for c in bf16] == [key(c) for c in main]
+    assert [c[1] for c in bf16] == [f"bf16 {c[1]}" for c in main]
+    assert len(bf16) == 17 and sum(c[0] == "banded_stem" for c in bf16) == 1
+    assert sum(c[5] for c in bf16 if c[1] == "bf16 eval"
+               and c[0] == "banded_conv") == 8
+
+
+def test_bound_counts_bf16_operands_in_two_bytes():
+    nbr = torch.full((1000, 27), -1, dtype=torch.int32)
+    nbr[:500, :10] = 0
+    ms, by = chip_smoke.bound(nbr, 128, 96, x_bytes=2, w_bytes=2, y_bytes=2)
+    nbytes = (2.0 * 1000 * 128 + 4.0 * 1000 * 27 + 2.0 * 27 * 128 * 96
+              + 2.0 * 1000 * 96)
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, 1e3 * nbytes / chip_smoke.PEAK_HBM_BYTES)
+    assert ms < chip_smoke.bound(nbr, 128, 96)[0]
+
+
+def test_main_drives_the_bf16_dropout_and_resume_phases():
+    """main() runs the tenth slice's phases and reports their launches as
+    paths of their own beside the earlier paths."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    for phase in ("phase_bf16_backbone", "phase_dropout", "phase_resume",
+                  "phase_train_reference"):
+        assert callable(getattr(chip_smoke, phase))
+        assert f"{phase}(" in main
+    for path in ('"bf16_backbone"', '"dropout"', '"resume"', '"train"',
+                 '"eval"', '"single"', '"serve"'):
+        assert path in main
+    assert '"bf16_shapes"' in main

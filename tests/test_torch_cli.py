@@ -1,5 +1,6 @@
 """The port's four CLIs against the JAX package's: the same flags (less the
-seven that wait for checkpoints and the parallel paths), the reference
+four that wait for the parallel paths; the three of checkpoints and resume
+were the other three of the seven until they were ported), the reference
 model block folded into the same config fields, and the same guards."""
 
 import dataclasses
@@ -19,8 +20,7 @@ CLIS = {"eval_multi_obj": "agile3d_torch.eval_multi_obj",
         "main": "agile3d_torch.main"}
 WAITING = {"eval_multi_obj": {"--sp", "--sp_backbone", "--scene_parallel"},
            "eval_single_obj": set(), "run_ui": set(),
-           "main": {"--resume", "--start_epoch", "--ckpt_epochs",
-                    "--num_dp"}}
+           "main": {"--num_dp"}}
 REQUIRED = {"eval_multi_obj": ["--scan_folder", "s", "--val_list", "v"],
             "eval_single_obj": ["--scan_folder", "s", "--val_list", "v"],
             "run_ui": [], "main": []}
@@ -41,9 +41,11 @@ def test_flags_are_jax_flags_less_the_waiting_ones(name):
 
 
 def test_waiting_flags_are_the_seven():
+    # of the seven, checkpoints and resume (--resume, --start_epoch,
+    # --ckpt_epochs) are ported; the parallel paths' four wait
     assert set().union(*WAITING.values()) == {
-        "--resume", "--start_epoch", "--ckpt_epochs", "--num_dp", "--sp",
-        "--sp_backbone", "--scene_parallel"}
+        "--num_dp", "--sp", "--sp_backbone", "--scene_parallel"}
+    assert pcli.NOT_PORTED["main"] == ("--num_dp",)
     assert {k: set(v) for k, v in pcli.NOT_PORTED.items()} == {
         k: v for k, v in WAITING.items() if v}
 
@@ -126,17 +128,50 @@ def test_val_batch_size_guard(name):
             REQUIRED[name] + ["--val_batch_size", "2"]))
 
 
+class _Built(Exception):
+    """Raised by ``_spy_model`` once the entry point has built its model."""
+
+
+def _spy_model(monkeypatch) -> list:
+    """Agile3D.__init__ recording each model and then stopping the entry
+    point (with ``_Built``)."""
+    from agile3d_torch.models.agile3d import Agile3D
+
+    built, init = [], Agile3D.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+        raise _Built
+
+    monkeypatch.setattr(Agile3D, "__init__", spy)
+    return built
+
+
+def _assert_dropout_reached(built, rate=0.1):
+    (model,) = built
+    assert model.cfg.dropout == rate
+    layers = [layer for name in ("c2s_attention", "c2c_attention",
+                                 "ffn_attention", "s2c_attention")
+              for group in getattr(model, name) for layer in group]
+    assert layers and all(layer.dropout == rate for layer in layers)
+
+
 @pytest.mark.parametrize("name", ["eval_multi_obj", "eval_single_obj",
                                   "main"])
-def test_dropout_reaches_the_not_ported_error(name):
+def test_dropout_reaches_the_not_ported_error(name, monkeypatch):
+    """``--dropout`` reaches the decoder's layers (until the decoder's
+    dropout was ported, it reached a not-ported error there)."""
     mod = importlib.import_module(CLIS[name])
     args = mod.get_args_parser().parse_args(
         REQUIRED[name] + ["--dropout", "0.1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="dropout"):
+    built = _spy_model(monkeypatch)
+    with pytest.raises(_Built):
         mod.main(args, log=lambda m: None)
+    _assert_dropout_reached(built)
 
 
-def test_run_ui_dropout_reaches_the_not_ported_error(tmp_path):
+def test_run_ui_dropout_reaches_the_not_ported_error(tmp_path, monkeypatch):
     import numpy as np
 
     from agile3d_torch import run_ui
@@ -151,17 +186,32 @@ def test_run_ui_dropout_reaches_the_not_ported_error(tmp_path):
     args = run_ui.get_args_parser().parse_args(
         ["--dropout", "0.1", "--device", "cpu", "--dataset_scenes",
          str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="dropout"):
+    built = _spy_model(monkeypatch)
+    with pytest.raises(_Built):
         run_ui.main(args)
+    _assert_dropout_reached(built)
 
 
-def test_training_takes_multi_object_data_only():
+def test_training_takes_multi_object_data_only(monkeypatch):
+    """``--dataset_mode single_obj`` builds the single-object datasets for
+    training and validation (until they were ported, training took
+    multi-object data only; ``tests/test_torch_main.py`` runs it)."""
     from agile3d_torch import main as pmain
 
+    modes = []
+
+    def build_dataset(split, mode, **kw):
+        modes.append((split, mode))
+        if split == "val":
+            raise _Built
+        return []
+
+    monkeypatch.setattr(pmain, "build_dataset", build_dataset)
     args = pmain.get_args_parser().parse_args(
         ["--dataset_mode", "single_obj", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="multi_obj"):
-        pmain.main(args)
+    with pytest.raises(_Built):
+        pmain.main(args, log=lambda m: None)
+    assert modes == [("train", "single_obj"), ("val", "single_obj")]
 
 
 def test_the_card_by_default_is_no_silent_cpu():

@@ -232,10 +232,86 @@ def test_banded_stem_refuses_an_unaligned_map(card):
                        banded_stem_conv(x, nbr, w))
 
 
+BF16 = torch.bfloat16
+# (x dtype, w or g dtype): the pairs the bf16 backbone gives the kernels
+DTYPE_PAIRS = [(BF16, BF16), (torch.float32, BF16), (BF16, torch.float32)]
+
+
+@pytest.mark.parametrize("xd,wd", DTYPE_PAIRS)
+@pytest.mark.parametrize("n,cin,cout,k", [
+    (1000, 128, 96, 27), (777, 3, 20, 27), (4000, 256, 130, 27),
+    (130, 33, 7, 27), (2000, 16, 16, 125)])
+def test_banded_conv_bf16_operands_equal_the_f32_launch(card, xd, wd, n, cin,
+                                                        cout, k):
+    """A bf16 operand casts to itself: the launch equals the f32 launch on
+    its values bit for bit, cast to x's dtype; forward and dX."""
+    x, nbr, w = _inputs(n, cin, cout, k, n + cin, card)
+    x, w = x.to(xd), w.to(wd)
+    before = banded_conv.launches
+    y = banded_conv(x, nbr, w)
+    assert banded_conv.launches == before + 1 and y.dtype == xd
+    assert torch.equal(y, banded_conv(x.float(), nbr, w.float()).to(xd))
+    wt = w.transpose(1, 2).contiguous()   # a forward's [k, cout, cin]
+    dx = banded_conv(x, nbr, wt, transposed=True)
+    assert torch.equal(
+        dx, banded_conv(x.float(), nbr, wt.float(), transposed=True).to(xd))
+    # and the f32 launch on those values against the plain version
+    _check(banded_conv, banded_conv_reference, x.float(), nbr, w.float(),
+           banded_conv)
+
+
+@pytest.mark.parametrize("xd,gd", DTYPE_PAIRS)
+@pytest.mark.parametrize("n,cin,cout,k", [(3000, 96, 128, 27),
+                                          (900, 96, 96, 5), (50, 33, 128, 27)])
+def test_banded_conv_dw_bf16_operands_equal_the_f32_launch(card, xd, gd, n,
+                                                           cin, cout, k):
+    x, nbr, _ = _inputs(n, cin, cout, k, n + cout, card)
+    g = torch.randn(n, cout, generator=torch.Generator().manual_seed(n)).to(card)
+    x, g = x.to(xd), g.to(gd)
+    dw = banded_conv_dw(x, nbr, g)
+    assert dw.dtype == torch.float32
+    assert torch.equal(dw, banded_conv_dw(x.float(), nbr, g.float()))
+
+
+@pytest.mark.parametrize("xd,wd", DTYPE_PAIRS)
+@pytest.mark.parametrize("n,cout", [(3000, 32), (50, 40)])
+def test_banded_stem_bf16_operands_equal_the_f32_launch(card, xd, wd, n, cout):
+    x, nbr, w = _inputs(n, 3, cout, 125, n, card)
+    x, w = x.to(xd), w.to(wd)
+    y = banded_stem_conv(x, nbr, w)
+    assert y.dtype == xd
+    assert torch.equal(y, banded_stem_conv(x.float(), nbr, w.float()).to(xd))
+    xb, wimg = stem_prep(x, w)
+    xb32, wimg32 = stem_prep(x.float(), w.float())
+    assert torch.equal(xb, xb32) and torch.equal(wimg, wimg32)
+
+
+def test_banded_conv_function_in_bf16(card):
+    """BandedConv under the bf16 backbone's training dtypes: dX in x's
+    dtype, dW in w's, each the f32 launches on the same values."""
+    x, nbr, w = _inputs(2000, 96, 96, 27, 7, card)
+    xb = x.to(BF16).requires_grad_()
+    wb = w.to(BF16).requires_grad_()
+    y = BandedConv.apply(xb, nbr, wb)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(card)
+    y.backward(g.to(BF16))
+    assert y.dtype == xb.grad.dtype == wb.grad.dtype == BF16
+    want_dx = banded_conv(g.to(BF16).float(), nbr, wb.detach().float(),
+                          transposed=True)
+    assert torch.equal(xb.grad, want_dx.to(BF16))
+    want_dw = banded_conv_dw(xb.detach().float(), nbr, g.to(BF16).float())
+    assert torch.equal(wb.grad, want_dw.to(BF16))
+
+
 def test_wrappers_refuse_bad_inputs(card):
     x, nbr, w = _inputs(100, 8, 8, 27, 0, card)
     with pytest.raises(TypeError):
         banded_conv(x.double(), nbr, w.double())
+    with pytest.raises(TypeError):
+        banded_conv(x.half(), nbr, w)
+    with pytest.raises(TypeError):
+        banded_stem_conv(x[:, :3].contiguous().half(), nbr.repeat(1, 5)[:, :125]
+                         .contiguous(), torch.zeros(125, 3, 8, device=card))
     with pytest.raises(TypeError):
         banded_conv(x, nbr.long(), w)
     with pytest.raises(ValueError):

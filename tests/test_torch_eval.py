@@ -18,10 +18,12 @@ from agile3d_torch.data.datasets import collate_scenes as port_collate
 from agile3d_torch.data.synthetic import write_benchmark as port_write_benchmark
 from agile3d_torch.engine import eval as peval
 from agile3d_torch.evaluation.evaluators import EvaluatorMO as PortEvaluatorMO
+from agile3d_torch.utils.misc import MetricLogger as PortMetricLogger
 from agile3d_tpu.config import Config
 from agile3d_tpu.data.datasets import InterMultiObjDataset, collate_scenes
 from agile3d_tpu.engine import eval as jeval
 from agile3d_tpu.evaluation import EvaluatorMO
+from agile3d_tpu.utils.misc import MetricLogger as JaxMetricLogger
 from tests.synthetic import write_benchmark
 from tests.test_torch_model import SMALL, port_model, randomized_weights
 from tests.test_torch_weights import port_model_config
@@ -45,10 +47,11 @@ def rollouts(tmp_path_factory):
     jcfg = Config(model=SMALL)
     jbatch = collate_scenes([InterMultiObjDataset(scans, val_list, 0.05)[0]],
                             jcfg.buckets)
+    jmeter, pmeter = JaxMetricLogger(), PortMetricLogger()
     jrows = jeval.evaluate_scene(
         jeval.InteractiveEngine(jcfg), params, buffers, bn_state, jbatch,
         mode="multi", instance_id=0, rng=random.Random(ROLLOUT_SEED),
-        max_num_clicks=MAX_NUM_CLICKS)
+        max_num_clicks=MAX_NUM_CLICKS, loss_meter=jmeter)
 
     pcfg = PortConfig(model=port_model_config(SMALL))
     pbatch = port_collate([PortDataset(pscans, pval_list, 0.05)[0]],
@@ -56,9 +59,31 @@ def rollouts(tmp_path_factory):
     engine = peval.InteractiveEngine(pcfg, port_model(SMALL, sd), device="cpu")
     prows = peval.evaluate_scene(engine, pbatch, instance_id=0,
                                  rng=random.Random(ROLLOUT_SEED),
-                                 max_num_clicks=MAX_NUM_CLICKS)
+                                 max_num_clicks=MAX_NUM_CLICKS,
+                                 loss_meter=pmeter)
     return dict(root=root, scans=(scans, pscans), val_list=val_list,
-                jrows=jrows, prows=prows, jbatch=jbatch, pbatch=pbatch)
+                jrows=jrows, prows=prows, jbatch=jbatch, pbatch=pbatch,
+                meters=(jmeter, pmeter))
+
+
+def test_validation_loss_meter_matches_jax(rollouts):
+    """The meter of ``evaluate_scene``'s model rounds (JAX's ``_val_losses``,
+    the same click bucket and padded labels): the same keys and counts, and
+    each mean within rtol 1e-4 (the losses' own tolerance in
+    ``tests/test_torch_train.py``)."""
+    jmeter, pmeter = rollouts["meters"]
+    assert list(pmeter.meters) == list(jmeter.meters) == [
+        "loss", "loss_bce", "loss_dice"]
+    for k, m in jmeter.meters.items():
+        p = pmeter.meters[k]
+        assert p.count == m.count > 0, k
+        np.testing.assert_allclose(p.global_avg, m.global_avg, rtol=1e-4,
+                                   err_msg=k)
+        np.testing.assert_allclose(sorted(p.deque), sorted(m.deque),
+                                   rtol=1e-4, err_msg=k)
+    with pytest.raises(ValueError, match="host loop"):
+        peval.evaluate_dataset(None, [], "unused.csv", device_rollout=True,
+                               loss_meter=pmeter)
 
 
 def test_synthetic_files_are_identical(rollouts):

@@ -12,6 +12,7 @@ import os
 import random
 
 import numpy as np
+import pytest
 import torch
 
 from agile3d_torch import main as pmain
@@ -48,7 +49,9 @@ def test_training_entry_point_on_cpu(tmp_path, monkeypatch):
     (stats,) = hist["epochs"]
     assert set(stats) == {"loss", "grad_norm", "mIoU", "loss_bce", "loss_dice"}
     assert all(math.isfinite(v) for v in stats.values())
-    assert sum(str(m).startswith("Epoch: [0]") for m in logged) == 2
+    # MetricLogger.log_every: a line at each of the 2 steps, and the total
+    assert sum(str(m).startswith("Epoch: [0]") for m in logged) == 3
+    assert any(str(m).startswith("Epoch: [0] Total time: ") for m in logged)
     assert 0 in hist["val"] and "IoU@1" in hist["val"][0]
     assert os.path.exists(os.path.join(out_dir, "valResults",
                                        "val_results_epoch_0.csv"))
@@ -91,3 +94,52 @@ def test_rollout_batch_call_matches_single_calls(tmp_path):
         _, alone = engine.run_mask(one, clicks[i], int(num_obj[i]))
         np.testing.assert_array_equal(both[i, :n_valid[i]].numpy(),
                                       alone[0, :n_valid[i]].numpy())
+
+
+def test_single_object_training_fails_where_jax_fails(tmp_path, monkeypatch):
+    """``--dataset_mode single_obj`` in both packages' ``main.py``, at the
+    reduced width: each trains an epoch (one batch of the three objects)
+    on the single-object dataset
+    (object list ``.npy``), writes its checkpoint, runs the validation
+    rollout in the multi-object protocol (the same CSV row schedule), and
+    then fails in ``EvaluatorMO``, which reads the ``.npy`` object list as
+    JSON (a fault on the reference side, ROADMAP C4)."""
+    import main as jax_main
+
+    from tests.synthetic import write_benchmark as jax_write_benchmark
+
+    monkeypatch.setenv("AGILE3D_CACHE", "0")
+    scans, _ = jax_write_benchmark(str(tmp_path / "data"), num_scenes=2,
+                                   num_obj=3, seed=2, n_points=1500)
+    objects = np.array([["scene0000_00", "1"], ["scene0001_00", "2"],
+                        ["scene0000_00", "3"]])
+    train, val = str(tmp_path / "train.npy"), str(tmp_path / "val.npy")
+    np.save(train, objects)
+    np.save(val, objects[:1])
+    small = dataclasses.replace(SMALL, max_clicks=256)
+    argv = ["--dataset_mode", "single_obj", "--scan_folder", scans,
+            "--train_list", train, "--val_list", val, "--epochs", "1",
+            "--val_epochs", "1", "--batch_size", "3", "--max_num_clicks", "1",
+            "--seed", "0", "--device", "cpu"]
+    rows, where = {}, {}
+    for name, module, cfg in (("jax", jax_main, small),
+                              ("port", pmain, port_model_config(small))):
+        build = module.build_config
+        monkeypatch.setattr(module, "build_config", lambda args, b=build, c=cfg:
+                            dataclasses.replace(b(args), model=c))
+        out_dir = str(tmp_path / name)
+        args = module.get_args_parser().parse_args(
+            argv + ["--output_dir", out_dir])
+        with pytest.raises(UnicodeDecodeError) as err:
+            module.main(args) if name == "jax" else module.main(
+                args, log=lambda m: None)
+        where[name] = [(os.path.basename(str(e.path)), e.name)
+                       for e in err.traceback]
+        assert ("evaluators.py", "__init__") in where[name], where[name]
+        assert os.path.exists(os.path.join(
+            out_dir, "checkpoint" if name == "jax" else "checkpoint.pth"))
+        with open(os.path.join(out_dir, "valResults",
+                               "val_results_epoch_0.csv")) as f:
+            rows[name] = [r.split(" ")[:4] for r in f.read().split("\n") if r]
+    assert rows["port"] == rows["jax"] and len(rows["port"]) == 2
+    assert rows["port"][0][1:3] == ["0000_00", "1"]
