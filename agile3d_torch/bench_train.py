@@ -7,9 +7,12 @@ synthetic scenes of 150,000 points, with a fixed click table (no click
 rollout). Then an epoch's stepping over ``--batches`` fresh batches,
 serially and with the batches assembled ahead on a host thread
 (``data/prefetch.py``, depth 2), to show how much host time the prefetcher
-hides. The last line printed is one JSON object with ``bench_train.py``'s
-keys (``metric``, ``value``, ``unit``, ``vs_baseline``, ``breakdown``,
-``roofline``; the share of the bf16 tensor-core peak is ``mfu``).
+hides: host prep on the native runtime (``sparse/native.py``, the
+default), then again on the numpy path (``AGILE3D_NATIVE=0``) under
+``breakdown.numpy_host``. The last line printed is one JSON object with
+``bench_train.py``'s keys (``metric``, ``value``, ``unit``,
+``vs_baseline``, ``breakdown``, ``roofline``; the share of the bf16
+tensor-core peak is ``mfu``).
 
 Times: the step by CUDA events (``tools.time_ms``, median of ``--reps``
 after one warm-up step); host assembly and the epoch stepping by the host
@@ -38,6 +41,7 @@ from agile3d_torch.engine.eval import InteractiveEngine, resolve_device
 from agile3d_torch.engine.train import make_optimizer, make_train_step
 from agile3d_torch.models.agile3d import ClickState, init_agile3d
 from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+from agile3d_torch.sparse import native
 from agile3d_torch.tools import device_label, time_ms
 from agile3d_torch.utils.costs import (
     PEAK_BF16_FLOPS,
@@ -127,9 +131,10 @@ def main(args) -> dict:
             [quantized_sample(*sc, NUM_OBJ, vs, "s")
              for sc in raw_scenes[bi * bs:(bi + 1) * bs]], cfg.buckets)
 
-    t0 = time.perf_counter()
-    prepare(0)
-    host_s = time.perf_counter() - t0
+    def assembly_ms():
+        t0 = time.perf_counter()
+        prepare(0)
+        return (time.perf_counter() - t0) * 1e3
 
     def run_epoch(depth, n):
         if device.type == "cuda":
@@ -137,14 +142,26 @@ def main(args) -> dict:
         t0 = time.perf_counter()
         for b in BatchPrefetcher(prepare, range(n), depth=depth):
             float(step(b)["loss"])
-        return (time.perf_counter() - t0) / n
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def host_times():
+        return {"host_batch_assembly_ms": assembly_ms(),
+                # host and device alternate, then host assembly on a thread
+                "epoch_step_serial_ms": run_epoch(0, args.batches),
+                "epoch_step_prefetch_ms": run_epoch(2, args.batches)}
 
     run_epoch(0, 1)                          # one batch to warm the loop
-    serial_s = run_epoch(0, args.batches)    # host and device alternate
-    overlap_s = run_epoch(2, args.batches)   # host assembly on a thread
+    host_path = "native" if native.enabled() else "numpy"
+    host = host_times()
+    numpy_host = None
+    if host_path == "native":
+        with native.disabled():
+            numpy_host = host_times()
     print(f"supervised step {step_ms:.1f} ms; epoch stepping serial "
-          f"{serial_s * 1e3:.0f} ms/step, prefetch {overlap_s * 1e3:.0f} "
-          f"ms/step (host assembly {host_s * 1e3:.0f} ms)", file=sys.stderr)
+          f"{host['epoch_step_serial_ms']:.0f} ms/step, prefetch "
+          f"{host['epoch_step_prefetch_ms']:.0f} ms/step (host assembly "
+          f"{host['host_batch_assembly_ms']:.0f} ms, {host_path})",
+          file=sys.stderr)
 
     # step FLOPs: the forward's useful work (costs.py) x 3, the backward
     # costing about twice the forward
@@ -160,9 +177,9 @@ def main(args) -> dict:
         "vs_baseline": None,
         "breakdown": {
             "supervised_step_ms": step_ms,
-            "host_batch_assembly_ms": host_s * 1e3,
-            "epoch_step_serial_ms": serial_s * 1e3,
-            "epoch_step_prefetch_ms": overlap_s * 1e3,
+            **host,
+            "host_path": host_path,
+            "numpy_host": numpy_host,
             "batch_scenes": bs,
             "batch_voxels": total_vox,
             "padded_rows": n_rows,

@@ -3,7 +3,7 @@
 
 Per scene, rounds 1..budget run on the device without waiting on the
 host: the decoder, the clicked-voxel override, the full-resolution IoU,
-the click simulation (boundary distances of every row through
+the click simulation (boundary distances of the error rows through
 ``ops/boundary_dist.py``, then the top error cluster picked by
 scatter-max) and the click table's extension all stay on the card; the
 host reads the rounds' IoUs once, after the loop. Round 0 stays on the
@@ -50,14 +50,19 @@ def error_clusters(pred: torch.Tensor, labels: torch.Tensor,
     (err [B, N], compact [B, N] = labels * k + pred, d [B, N] = boundary
     distance on error rows and -inf elsewhere, sizes [B, k * k] = each
     (gt, pred) cluster's largest distance, -inf where the cluster is empty
-    or its distance is not finite), k = max_label + 1."""
+    or its distance is not finite), k = max_label + 1. The rows come in
+    the order ``build_pyramid`` enforces (sorted by packed key): the
+    distance kernel's culling relies on it, and rows in another order give
+    the same values at many times the cost."""
     k = max_label + 1
     n_slots = k * k
     err = valid & (pred != labels)
     compact = labels * k + pred
     cluster = torch.where(err, compact, -1).to(torch.int32)
+    # the kernel computes the error rows only (+inf elsewhere): no other
+    # row's distance is read
     d = boundary_distances_all(coords.contiguous(), cluster,
-                               valid.contiguous())
+                               valid.contiguous(), query=err.contiguous())
     neg_inf = torch.full((), float("-inf"), device=d.device)
     d = torch.where(err, d, neg_inf)
     segment = torch.where(err, compact, n_slots).long()

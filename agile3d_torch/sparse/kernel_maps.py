@@ -8,15 +8,23 @@ in numpy (the port's own copy of the JAX package's ``sparse/kernel_maps.py``).
     each fine voxel and the kernel element (interleaved bits of g mod 2).
 
 Grid coordinates are g_l = coordinate / 2^l, so g_{l+1} = floor(g_l / 2).
+
+``build_pyramid`` runs the port's native runtime (``sparse/native.py``:
+one sorted co-scan per run of offsets, a hash map for each stride-2 step)
+unless ``AGILE3D_NATIVE=0``, which takes the numpy path below (one
+``searchsorted`` per offset, ``np.unique`` for each step); both give the
+same maps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 
 import numpy as np
 
+from agile3d_torch.sparse import native
 from agile3d_torch.sparse.quantize import pack_coords
 
 
@@ -106,34 +114,51 @@ def build_pyramid(
             "build_pyramid: voxel rows must be sorted by packed "
             "(batch,x,y,z) key (z fastest) and unique")
 
-    # (g mod 2) -> kernel-2 element, consistent with kernel_offsets(2)
-    k2_weight = np.array([4, 2, 1], dtype=np.int32)
+    use_native = native.enabled()
+    nbr_map = native.neighbor_map if use_native else _neighbor_map
     levels: list[LevelMaps] = []
     for lvl in range(num_levels):
-        k3 = _neighbor_map(grid, batch, KERNEL_OFFSETS_CACHE[3])
+        k3 = nbr_map(grid, batch, KERNEL_OFFSETS_CACHE[3])
         k5 = None
         if lvl == 0 and stem_kernel != 3:
-            k5 = _neighbor_map(grid, batch, KERNEL_OFFSETS_CACHE[stem_kernel])
+            k5 = nbr_map(grid, batch, KERNEL_OFFSETS_CACHE[stem_kernel])
         levels.append(LevelMaps(grid=grid, batch=batch, k3=k3, k5=k5,
                                 down=None, up_parent=None, up_offset=None))
         if lvl == num_levels - 1:
             break
-
-        coarse_of_fine = grid >> 1            # floor(g/2), negatives too
-        ckeys = pack_coords(coarse_of_fine, batch)
-        # np.unique sorts, so the coarse level keeps the sorted-row order
-        _, first_idx, parent = np.unique(ckeys, return_index=True,
-                                         return_inverse=True)
-        parent = parent.reshape(-1).astype(np.int32)
-        coarse_grid = coarse_of_fine[first_idx]
-        coarse_batch = batch[first_idx]
-        down = np.full((coarse_grid.shape[0], 8), -1, dtype=np.int32)
-        child_offset = ((grid & 1) * k2_weight[None, :]).sum(axis=1)
-        down[parent, child_offset] = np.arange(grid.shape[0], dtype=np.int32)
-
+        step = native.stride_down if use_native else _stride_down
+        coarse_grid, coarse_batch, parent, child_offset, down = step(grid,
+                                                                     batch)
         levels[-1].down = down
         levels[-1].up_parent = parent
-        levels[-1].up_offset = child_offset.astype(np.int32)
+        levels[-1].up_offset = child_offset
         grid, batch = coarse_grid, coarse_batch
 
+    with _paths_lock:
+        build_pyramid.paths["native" if use_native else "numpy"] += 1
     return Pyramid(levels=levels)
+
+
+# pyramids built by path, for a run to show which one its host prep took
+build_pyramid.paths = {"native": 0, "numpy": 0}
+_paths_lock = threading.Lock()
+
+
+def _stride_down(grid: np.ndarray, batch: np.ndarray):
+    """One stride-2 step in numpy: (coarse_grid, coarse_batch, parent,
+    child_offset, down), the coarse rows sorted by packed key."""
+    # (g mod 2) -> kernel-2 element, consistent with kernel_offsets(2)
+    k2_weight = np.array([4, 2, 1], dtype=np.int32)
+    coarse_of_fine = grid >> 1            # floor(g/2), negatives too
+    ckeys = pack_coords(coarse_of_fine, batch)
+    # np.unique sorts, so the coarse level keeps the sorted-row order
+    _, first_idx, parent = np.unique(ckeys, return_index=True,
+                                     return_inverse=True)
+    parent = parent.reshape(-1).astype(np.int32)
+    coarse_grid = coarse_of_fine[first_idx]
+    coarse_batch = batch[first_idx]
+    down = np.full((coarse_grid.shape[0], 8), -1, dtype=np.int32)
+    child_offset = ((grid & 1) * k2_weight[None, :]).sum(axis=1)
+    down[parent, child_offset] = np.arange(grid.shape[0], dtype=np.int32)
+    return (coarse_grid, coarse_batch, parent, child_offset.astype(np.int32),
+            down)

@@ -8,11 +8,20 @@ voxel's first point in point order.
 The division runs in float64, as the JAX package's default C++ path does
 (``sparse/csrc/sparse_index.cpp``, ``std::floor(float / double)``); a
 float32 division puts a few boundary points into different voxels.
+
+``sparse_quantize`` runs the port's native runtime (``sparse/native.py``)
+unless ``AGILE3D_NATIVE=0``; the numpy path gives the same arrays for
+float32 points. The native path, like the JAX package's, takes the points
+as float32 (float64 points are rounded to float32 first).
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
+
+from agile3d_torch.sparse import native
 
 # 19 bits per spatial coordinate (signed range +-2^18), 6 bits batch.
 _COORD_BITS = 19
@@ -48,6 +57,10 @@ def sparse_quantize(
     [unique_map]`` and ``inverse_map[i]`` the voxel row of point i.
     """
     q = float(quantization_size)
+    if native.enabled():
+        _count("native")
+        return native.quantize(coords, q)
+    _count("numpy")
     vox = np.floor(np.asarray(coords).astype(np.float64) / q).astype(np.int32)
     keys = pack_coords(vox)
     # np.unique sorts the keys and reports each key's first occurrence
@@ -55,3 +68,13 @@ def sparse_quantize(
                                           return_inverse=True)
     return (vox[first_idx], first_idx.astype(np.int64),
             inverse_map.reshape(-1).astype(np.int64))
+
+
+# calls by path, for a run to show which one its host prep took
+sparse_quantize.paths = {"native": 0, "numpy": 0}
+_paths_lock = threading.Lock()
+
+
+def _count(path: str) -> None:
+    with _paths_lock:
+        sparse_quantize.paths[path] += 1

@@ -22,7 +22,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 card's least time for the same work; then the boundary
                 distance of the device rollout, bit for bit against its
                 plain version, at an eval round's and a training round's
-                shapes, a ragged N, all rows invalid and one cluster;
+                shapes (the error rows queried, as the main paths call
+                it, then every row), a ragged N, all rows invalid and one
+                cluster, with the pairs it evaluated against the all-pairs
+                count (and a parent commit's kernel, see below);
   3. probes -- the kernels of the TPU probes' counterparts: the windowed
                 banded k3 conv (its plan covers every neighbour of the
                 smoke scene's two finest maps) at the eval k3 shapes against
@@ -122,6 +125,17 @@ validation's loss meter; and after the device-rollout step,
                 the weights, BatchNorm statistics and optimizer state
                 restored bit for bit, launches per step as the routing rule
                 gives them.
+
+The eleventh slice (the boundary-distance kernel redesigned; the native
+host runtime) adds: the distance cases with the query mask; with
+``AGILE3D_PARENT=DIR`` (a parent commit unpacked with ``git archive``) the
+parent's distance kernel built from ``DIR`` and timed beside this one in
+turns on the same inputs, bit for bit too; around every main path that
+prepares scenes (eval, single, serve, training, the device-rollout step,
+resume, benches) the count of pyramids and quantized clouds by host path,
+failing if one took the numpy path (the benches, whose ``bench_train``
+also times the numpy path on purpose, must take the native one too); and
+``bench_train``'s host assembly and epoch stepping on both host paths.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -558,71 +572,173 @@ def rollout_inputs(batch):
 
 
 def distance_cases(eval_batch, train_batch):
-    """(role, count, coords, cluster, valid) for the boundary-distance
-    kernel: an eval round (count: per eval round) and a training round, then
-    a ragged N, all rows invalid and a single cluster (count 0)."""
+    """(role, count, coords, cluster, valid, query) for the boundary-distance
+    kernel: an eval round and a training round as the main paths call it,
+    the error rows as the query (count: per round), the same two for every
+    row (query None), then a ragged N (random points in random order:
+    nothing to cull), all rows invalid and a single cluster (count 0)."""
     rng = np.random.default_rng(0)
     n = 70001
     ragged = ((rng.random((1, n, 3)) * 8).astype(np.float32),
               rng.integers(-1, 12, (1, n)).astype(np.int32),
-              rng.random((1, n)) < 0.9)
+              rng.random((1, n)) < 0.9, None)
     n = 4096
     invalid = ((rng.random((1, n, 3)) * 8).astype(np.float32),
                rng.integers(-1, 12, (1, n)).astype(np.int32),
-               np.zeros((1, n), bool))
+               np.zeros((1, n), bool), None)
     n = 50000
     single = ((rng.random((1, n, 3)) * 8).astype(np.float32),
-              np.zeros((1, n), np.int32), np.ones((1, n), bool))
-    return [("eval round", 1, *rollout_inputs(eval_batch)),
-            ("train round", 1, *rollout_inputs(train_batch)),
+              np.zeros((1, n), np.int32), np.ones((1, n), bool), None)
+    ev, tr = rollout_inputs(eval_batch), rollout_inputs(train_batch)
+    return [("eval round", 1, *ev, ev[1] >= 0),
+            ("train round", 1, *tr, tr[1] >= 0),
+            ("eval round, all rows", 0, *ev, None),
+            ("train round, all rows", 0, *tr, None),
             ("ragged", 0, *ragged), ("all invalid", 0, *invalid),
             ("one cluster", 0, *single)]
 
 
+def parent_distance_kernel(torch):
+    """The boundary-distance kernel of the checkout at ``$AGILE3D_PARENT``
+    (a parent commit unpacked with ``git archive``), built with nvcc:
+    (run(coords, cluster, valid, query=None) -> d, takes_query); None when
+    the variable is unset. A kernel from before the query mask (PR 7-10)
+    has its own entry: scratch for the keys and counts, no query."""
+    import ctypes
+
+    from agile3d_torch.ops import boundary_dist, cuda_build
+
+    root = os.environ.get("AGILE3D_PARENT")
+    if not root:
+        return None
+    src = os.path.join(root, "agile3d_torch", "csrc", "boundary_dist.cu")
+    check(os.path.exists(src), f"AGILE3D_PARENT: no {src}")
+    lib_path = os.path.join(tempfile.mkdtemp(prefix="agile3d_parent_"),
+                            "libboundary_dist.so")
+    out = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                          "-o", lib_path, src], capture_output=True,
+                         text=True)
+    check(out.returncode == 0, f"the parent's kernel did not build:\n"
+                               f"{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    if hasattr(lib, "agile3d_boundary_dist_scratch"):
+        boundary_dist.bind(lib)
+        return (lambda coords, cluster, valid, query=None:
+                boundary_dist.launch(lib, coords, cluster, valid, query)), True
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.agile3d_boundary_dist
+    fn.restype, fn.argtypes = I, [P, P, P, P, P, P, I, I, P]
+
+    def run(coords, cluster, valid, query=None):
+        check(query is None, "the parent's distance kernel takes no query")
+        b, n = cluster.shape
+        d = torch.empty((b, n), dtype=torch.float32, device=coords.device)
+        keys = torch.empty((b, n, 4), dtype=torch.float32,
+                           device=coords.device)
+        count = torch.zeros(b, dtype=torch.int32, device=coords.device)
+        rc = fn(coords.data_ptr(), cluster.data_ptr(), valid.data_ptr(),
+                keys.data_ptr(), count.data_ptr(), d.data_ptr(), b, n,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the parent's distance kernel failed to launch: "
+                       f"CUDA error {rc}")
+        return d
+
+    return run, False
+
+
 def phase_distances(torch, cases):
     """The boundary-distance kernel bit for bit against its plain version
-    on the card. No single PyTorch call computes the masked minimum, so it
-    has no library time."""
+    on the card, with the (query, key) pairs it evaluated against the
+    all-pairs count, and (``$AGILE3D_PARENT``) the parent commit's kernel
+    on the same inputs, also bit for bit, timed in the same call. No
+    single PyTorch call computes the masked minimum, so it has no library
+    time. The bound counts what these inputs need at the least: the bytes,
+    and one pair per query row."""
     from agile3d_torch.ops.boundary_dist import (
+        all_pairs,
         boundary_distances_all,
         boundary_distances_all_reference,
         distance_work,
     )
     from agile3d_torch.tools import PEAK_FP32_FLOPS, bound_ms
 
+    parent = parent_distance_kernel(torch)
     rows = []
     for role, count, *arrays in cases:
         coords, cluster, valid = (torch.from_numpy(a).to(DEVICE)
-                                  for a in arrays)
+                                  for a in arrays[:3])
+        query = None if arrays[3] is None else torch.from_numpy(
+            arrays[3]).to(DEVICE)
         b, n = cluster.shape
-        run = lambda: boundary_distances_all(coords, cluster, valid)
+        run = lambda: boundary_distances_all(coords, cluster, valid, query)
         plain = lambda: boundary_distances_all_reference(coords, cluster,
-                                                         valid)
-        d, ref = run(), plain()
+                                                         valid, query)
+        pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+        d = boundary_distances_all(coords, cluster, valid, query, pairs=pairs)
+        ref = plain()
         torch.cuda.synchronize()
         tag = f"boundary_distances_all ({role}) {b}x{n}"
         check(torch.equal(d, ref), f"{tag}: kernel differs from the plain "
                                    f"version in {int((d != ref).sum())} rows")
-        n_keys = int(valid.sum())
+        n_pairs, n_all = int(pairs), all_pairs(valid, query)
+        check(n_pairs <= n_all, f"{tag}: {n_pairs} pairs > all {n_all}")
         big = b * n >= 100000
-        b_ms, b_by = bound_ms(*distance_work(cluster, valid),
+        b_ms, b_by = bound_ms(*distance_work(cluster, valid, query),
                               peak=PEAK_FP32_FLOPS)
         row = dict(kernel="boundary_distances_all", role=role,
-                   shape=f"{b}x{n}", count=count, valid_keys=n_keys,
+                   shape=f"{b}x{n}", count=count, valid_keys=int(valid.sum()),
+                   query_rows=b * n if query is None else int(query.sum()),
                    finite=int(torch.isfinite(d).sum()), max_abs_err=0.0,
-                   bitwise_equal=True,
-                   ms=time_ms(torch, run, reps=5 if big else 10, warmup=1),
+                   bitwise_equal=True, pairs=n_pairs, all_pairs=n_all,
+                   pairs_share=n_pairs / n_all if n_all else None,
+                   ms=None,
                    plain_ms=time_ms(torch, plain, reps=2 if big else 5,
                                     warmup=0),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   parent_ms=None)
+        timed = lambda f: time_ms(torch, f, reps=5 if big else 10, warmup=1)
+        if parent is not None and (query is None or parent[1]):
+            prun = lambda: parent[0](coords, cluster, valid, query)
+            pd = prun()
+            torch.cuda.synchronize()
+            check(torch.equal(pd, ref), f"{tag}: the parent's kernel differs "
+                                        f"from the plain version")
+            # in turns: parent, change, change, parent
+            t = [timed(f) for f in (prun, run, run, prun)]
+            row.update(parent_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2)
+        else:
+            row["ms"] = timed(run)
         emit({"phase": "kernel_parity", **row})
         rows.append(row)
-        del coords, cluster, valid, d, ref
+        del coords, cluster, valid, query, d, ref
         torch.cuda.empty_cache()
     check([r["finite"] for r in rows if r["role"] in ("all invalid",
                                                       "one cluster")]
           == [0, 0], "rows with no key of another cluster must be inf")
+    check(all(r["finite"] <= r["query_rows"] for r in rows),
+          "rows outside the query must be inf")
     return rows
+
+
+@contextlib.contextmanager
+def native_host_prep(path: str, numpy_too: bool = False):
+    """Counts the pyramids built and the point clouds quantized in the
+    block by path, emits them, and fails if the block built none on the
+    native runtime or (unless ``numpy_too``) any on the numpy path."""
+    from agile3d_torch.sparse.kernel_maps import build_pyramid
+    from agile3d_torch.sparse.quantize import sparse_quantize
+
+    for f in (build_pyramid, sparse_quantize):
+        f.paths = {"native": 0, "numpy": 0}
+    yield
+    counts = {"pyramids": dict(build_pyramid.paths),
+              "quantized": dict(sparse_quantize.paths)}
+    emit({"phase": "host_prep", "path": path, **counts})
+    check(counts["pyramids"]["native"] > 0,
+          f"{path}: no pyramid built on the native runtime: {counts}")
+    check(numpy_too or (counts["pyramids"]["numpy"] == 0
+                        and counts["quantized"]["numpy"] == 0),
+          f"{path}: host prep took the numpy path: {counts}")
 
 
 def phase_probes(torch, eval_pyr, eval_dev):
@@ -2603,9 +2719,14 @@ def phase_benches(torch):
     b, t = lines["bench"], lines["bench_train"]
     calls = b["raw"]["backbone"]["calls"]
     steps = t["breakdown"]["steps"]
+    host = {k: t["breakdown"][k] for k in (
+        "host_path", "host_batch_assembly_ms", "epoch_step_serial_ms",
+        "epoch_step_prefetch_ms", "numpy_host")}
     emit({"phase": "benches", "launches": launches,
           "bench_value_ms": b["value"], "bench_train_value": t["value"],
-          "seconds": time.time() - t0})
+          "bench_train_host": host, "seconds": time.time() - t0})
+    check(host["host_path"] == "native" and host["numpy_host"] is not None,
+          f"bench_train: host prep {host}")
 
     def all_finite(obj):
         if isinstance(obj, dict):
@@ -2672,9 +2793,9 @@ def kernel_meta():
             "agile3d_torch/csrc/boundary_dist.cu",
             tpu_kernel("device_eval.py", "_boundary_distances_all"),
             ("eval round",),
-            "one eval round of the smoke scene (an XLA fusion's "
-            "counterpart, not a Pallas kernel's; no library call computes "
-            "it)"),
+            "one eval round of the smoke scene, its error rows queried "
+            "(an XLA fusion's counterpart, not a Pallas kernel's; no "
+            "library call computes it)"),
     }
 
 
@@ -2752,21 +2873,30 @@ def main():
                                             train_compare, n_lv)
         dropout_launches = phase_dropout(torch, train_run, n_lv)
         del train_run, train_compare
-        eval_launches = phase_main_path(torch, scans, val_list,
-                                        os.path.join(tmp, "out"))
+        with native_host_prep("eval"):
+            eval_launches = phase_main_path(torch, scans, val_list,
+                                            os.path.join(tmp, "out"))
         oversize_launches = phase_oversize(torch, scans, val_list, tmp)
-        single_launches = phase_single(torch, scans, tmp)
-        serve_launches = phase_serve(torch, scans, tmp)
+        with native_host_prep("single"):
+            single_launches = phase_single(torch, scans, tmp)
+        with native_host_prep("serve"):
+            serve_launches = phase_serve(torch, scans, tmp)
         variant_launches = phase_variants(torch, eval_batch, scans, val_list,
                                           tmp)
         phase_memory(torch, eval_batch, tmp)
         del eval_batch
-        host_train = phase_train_main_path(torch, train_scans, train_list,
-                                           tmp)
-        device_train = phase_train_device_rollout(torch, train_scans,
-                                                  train_list, tmp)
-        resume_launches = phase_resume(torch, tmp)
-        bench_launches, _ = phase_benches(torch)
+        with native_host_prep("train"):
+            host_train = phase_train_main_path(torch, train_scans,
+                                               train_list, tmp)
+        with native_host_prep("train_device_rollout"):
+            device_train = phase_train_device_rollout(torch, train_scans,
+                                                      train_list, tmp)
+        with native_host_prep("resume"):
+            resume_launches = phase_resume(torch, tmp)
+        # bench_train also assembles batches on the numpy path, for its
+        # numpy_host times
+        with native_host_prep("benches", numpy_too=True):
+            bench_launches, _ = phase_benches(torch)
 
     meta = kernel_meta()
     paths = {"probe": probe_launches, "eval": eval_launches,
@@ -2823,6 +2953,12 @@ def main():
             tr = _summary(mine, ("train round",))
             entry["per_train_round"] = {k: tr[k] for k in (
                 "ms", "plain_ms", "bound_ms", "shapes")}
+            # pairs evaluated of the all-pairs count, and the parent
+            # commit's kernel where AGILE3D_PARENT names one (its main
+            # path computed every row)
+            entry["by_role"] = {r["role"]: {k: r[k] for k in (
+                "shape", "query_rows", "pairs", "all_pairs", "pairs_share",
+                "ms", "parent_ms", "plain_ms", "bound_ms")} for r in mine}
         kernels.append(entry)
     emit({"total_s": time.time() - t_start})
     emit({"kernels": kernels})

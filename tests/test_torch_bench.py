@@ -87,7 +87,14 @@ def test_bench_train_prints_its_json_line(capsys):
                 "epoch_step_serial_ms", "epoch_step_prefetch_ms",
                 "batch_scenes", "batch_voxels", "padded_rows"):
         assert key in bd
-    assert bd["batch_scenes"] == 2 and bd["steps"] == 5
+    # warm-up, 1 timed, 1 warming the loop, then serial and prefetched
+    # epochs of 1 batch on the native host path and again on numpy's
+    assert bd["batch_scenes"] == 2 and bd["steps"] == 7
+    assert bd["host_path"] == "native"
+    assert set(bd["numpy_host"]) == {"host_batch_assembly_ms",
+                                     "epoch_step_serial_ms",
+                                     "epoch_step_prefetch_ms"}
+    assert all(v > 0 for v in bd["numpy_host"].values())
     np.testing.assert_allclose(line["value"],
                                2 / (bd["supervised_step_ms"] / 1e3))
 

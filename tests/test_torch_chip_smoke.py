@@ -129,11 +129,16 @@ def test_distance_cases_follow_the_batches(tmp_path):
     assert (coords[0, nv[0]:] == 0).all() and not valid[0, nv[0]:].any()
     assert set(np.unique(cluster)) <= {-1, 11, 22, 33}
     cases = chip_smoke.distance_cases(batch, batch)
-    assert [c[0] for c in cases] == ["eval round", "train round", "ragged",
-                                     "all invalid", "one cluster"]
-    assert [c[1] for c in cases] == [1, 1, 0, 0, 0]
-    assert cases[2][2].shape == (1, 70001, 3) and not cases[3][4].any()
-    assert (cases[4][3] == 0).all()
+    assert [c[0] for c in cases] == [
+        "eval round", "train round", "eval round, all rows",
+        "train round, all rows", "ragged", "all invalid", "one cluster"]
+    assert [c[1] for c in cases] == [1, 1, 0, 0, 0, 0, 0]
+    # the main paths' call queries the error rows: here the objects
+    np.testing.assert_array_equal(cases[0][5], cluster >= 0)
+    assert cases[0][5].any() and not cases[0][5].all()
+    assert all(c[5] is None for c in cases[2:])
+    assert cases[4][2].shape == (1, 70001, 3) and not cases[5][4].any()
+    assert (cases[6][3] == 0).all()
 
 
 

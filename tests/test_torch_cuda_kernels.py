@@ -604,6 +604,98 @@ def test_boundary_distances_equal_plain_bitwise(card, b, n, valid_frac, n_cl):
         assert torch.isinf(d).all()
 
 
+def _sorted_scene(n, n_obj, seed, device):
+    """Rows sorted by (x, y, z) on a 0.05 grid, as voxel rows come: points
+    of n_obj balls (clusters 0..n_obj-1) in a background (-1)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3)) * 8
+    centres = rng.random((n_obj, 3)) * 8
+    cl = np.full(n, -1, np.int32)
+    for o, c in enumerate(centres):
+        cl[np.linalg.norm(pts - c, axis=1) < 0.8] = o
+    order = np.lexsort(np.floor(pts / 0.05).T[::-1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(pts[order].astype(np.float32)), t(cl[order])
+
+
+@pytest.mark.parametrize("b,n,n_obj,query_frac", [
+    (1, 196608, 8, None),      # sorted rows: the error clusters queried
+    (2, 98304, 6, None),
+    (1, 70001, 5, 0.3),        # a random query mask
+    (3, 1000, 2, 0.0),         # nothing queried: +inf everywhere
+    (2, 777, 1, 1.0),          # everything queried
+])
+def test_boundary_distances_of_query_rows_equal_plain(card, b, n, n_obj,
+                                                      query_frac):
+    """The main path's call: sorted rows (culling at work), the query a
+    mask; bit for bit the plain version, +inf outside the query, and the
+    pairs counter at most the all-pairs count (exactly it for a single
+    query tile's worth of keys)."""
+    from agile3d_torch.ops.boundary_dist import all_pairs
+
+    items = [_sorted_scene(n, n_obj, s, card) for s in range(b)]
+    coords = torch.stack([c for c, _ in items])
+    cluster = torch.stack([c for _, c in items])
+    g = torch.Generator().manual_seed(n)
+    valid = (torch.rand(b, n, generator=g) < 0.95).to(card)
+    query = (cluster >= 0) & valid if query_frac is None else (
+        torch.rand(b, n, generator=g) < query_frac).to(card)
+    pairs = torch.zeros(1, dtype=torch.int64, device=card)
+    before = boundary_distances_all.launches
+    d = boundary_distances_all(coords, cluster, valid, query, pairs=pairs)
+    torch.cuda.synchronize()
+    assert boundary_distances_all.launches == before + 1
+    ref = boundary_distances_all_reference(coords, cluster, valid, query)
+    assert torch.equal(d, ref), int((d != ref).sum())
+    assert torch.isinf(d[~query]).all()
+    assert 0 <= int(pairs) <= all_pairs(valid, query)
+    if query_frac == 0.0:
+        assert int(pairs) == 0
+
+
+def _snapped_scene(n, seed, device):
+    """Sorted rows on a coarse 0.125 grid (exact ties everywhere, boxes
+    that touch and coincide), signed zeros, and duplicate points in
+    different clusters (distance 0): clusters are balls of the grid
+    points, the background -1."""
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(-20, 21, (n, 3))
+    pts = grid.astype(np.float32) * np.float32(0.125)
+    cl = np.full(n, -1, np.int32)
+    for o, c in enumerate(rng.integers(-16, 17, (4, 3)) * 0.125):
+        cl[np.linalg.norm(pts - c, axis=1) < 1.0] = o
+    dup = rng.choice(n, n // 20, replace=False)
+    src = rng.choice(n, n // 20, replace=False)
+    grid[dup], pts[dup] = grid[src], pts[src]
+    cl[dup] = (cl[src] + 1 + rng.integers(0, 4, n // 20)) % 5 - 1
+    pts[(pts == 0) & (rng.random(pts.shape) < 0.5)] = np.float32(-0.0)
+    order = np.lexsort(grid.T[::-1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(pts[order]), t(cl[order])
+
+
+@pytest.mark.parametrize("b,n,queried", [
+    (1, 50000, True), (3, 4099, True), (1, 50000, False), (2, 777, False),
+])
+def test_boundary_distances_on_snapped_floats_equal_plain(card, b, n,
+                                                          queried):
+    """Ties, touching boxes, -0.0 and zero distances across clusters
+    through the kernel's bound, its warp-wide group test and its >= skip:
+    bit for bit the plain version, with and without the query mask."""
+    items = [_snapped_scene(n, s, card) for s in range(b)]
+    coords = torch.stack([c for c, _ in items])
+    cluster = torch.stack([c for _, c in items])
+    assert bool((torch.signbit(coords) & (coords == 0)).any())
+    g = torch.Generator().manual_seed(n + b)
+    valid = (torch.rand(b, n, generator=g) < 0.9).to(card)
+    query = (cluster >= 0) & valid if queried else None
+    d = boundary_distances_all(coords, cluster, valid, query)
+    torch.cuda.synchronize()
+    ref = boundary_distances_all_reference(coords, cluster, valid, query)
+    assert torch.equal(d, ref), int((d != ref).sum())
+    assert bool((ref == 0).any())
+
+
 def test_boundary_distances_refuse_bad_inputs(card):
     coords, cluster, valid = _rollout_case(1, 100, 0.9, 3, 0, card)
     with pytest.raises(TypeError):
@@ -617,3 +709,10 @@ def test_boundary_distances_refuse_bad_inputs(card):
     with pytest.raises(ValueError):  # every other row: not contiguous
         boundary_distances_all(coords[:, ::2], cluster[:, ::2],
                                valid[:, ::2])
+    with pytest.raises(TypeError):
+        boundary_distances_all(coords, cluster, valid, valid.int())
+    with pytest.raises(ValueError):
+        boundary_distances_all(coords, cluster, valid, valid.cpu())
+    with pytest.raises(ValueError):
+        boundary_distances_all(coords, cluster, valid,
+                               pairs=torch.zeros(1, device=card))

@@ -127,27 +127,37 @@ def test_boundary_distances_batch_and_chunks():
 
 
 def test_distance_kernel_sizes_and_work():
-    """Mirrors of csrc/boundary_dist.cu: 1,024 query rows per CTA (4 per
-    thread), two 512-record tiles of 16 bytes in shared memory, 2,048-key
-    chunks; the work counts 8 operations per pair of a row and a valid key
-    of another cluster of its item."""
-    assert (bd.QUERY_BLOCK, bd.TILE_SMEM_BYTES, bd.KEY_CHUNK) == (
-        1024, 16384, 2048)
-    assert bd.KEY_CHUNK % bd.TILE == 0
+    """Mirrors of csrc/boundary_dist.cu (read from the source): 32-record
+    key tiles, 4 warps a CTA of 32 query rows each, 1,024-row scan chunks;
+    the least work counts one pair (8 operations) per query row and each
+    input byte once, and the all-pairs count is query rows times valid keys
+    per item."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(bd.__file__), os.pardir, "csrc",
+                            "boundary_dist.cu")).read()
+    num = lambda pat: int(re.search(pat, src).group(1))
+    assert bd.TILE == num(r"constexpr int TILE = (\d+);") == 32
+    assert bd.WARPS == num(r"constexpr int WARPS = (\d+);")
+    assert bd.SCAN_CHUNK == (num(r"constexpr int SCAN_THREADS = (\d+);")
+                             * num(r"constexpr int SCAN_RPT = (\d+);"))
+    assert num(r"constexpr int QGROUP = (\d+);") == 32
     cluster = torch.tensor([[-1, -1, 3, 3, 5], [0, 0, 0, 0, 0]],
                            dtype=torch.int32)
     valid = torch.tensor([[True, True, True, False, True],
                           [True, True, False, False, False]])
-    # item 0: rows -1, -1 see keys 3, 5; rows 3, 3 see -1, -1, 5; row 5
-    # sees -1, -1, 3; item 1: one cluster, no pairs
+    query = torch.tensor([[False, False, True, False, True],
+                          [True, False, False, False, False]])
     ops, nbytes = distance_work(cluster, valid)
-    assert ops == 8.0 * (2 * 2 + 2 * 3 + 3)
-    assert nbytes == 2 * 5 * 21.0
+    assert ops == 8.0 * 10 and nbytes == 2 * 5 * 21.0
+    ops, nbytes = distance_work(cluster, valid, query)
+    assert ops == 8.0 * 3 and nbytes == 2 * 5 * 22.0
+    assert bd.all_pairs(valid) == 5 * 4 + 5 * 2
+    assert bd.all_pairs(valid, query) == 2 * 4 + 1 * 2
     coords, cl, ok = _cloud(5, n=200)
     t = lambda a: torch.from_numpy(a)[None]
     d = boundary_distances_all_reference(t(coords), t(cl), t(ok))[0]
-    pairs = sum(int((ok & (cl != c)).sum()) for c in cl)
-    assert distance_work(t(cl), t(ok))[0] == 8.0 * pairs
     assert np.isfinite(d.numpy()).all()
 
 
