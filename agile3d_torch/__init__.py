@@ -11,6 +11,10 @@ default) or on the host. The backbone's banded sparse-conv kernels, the TPU
 probes' kernels and the rollout's boundary distance are hand-written CUDA
 C++ for ``sm_90a`` (``csrc/``); every other op is plain PyTorch.
 
+The parallel paths (``parallel/``: data-parallel training, the voxel-
+sharded decoder, backbone and device rollout) run one process a rank in a
+``torch.distributed`` group.
+
 The package imports torch and numpy only. Entry points run on ``cuda``
 unless the caller asks for ``device="cpu"`` (``--device cpu``); the CLIs
 take the JAX package's flags (``cli.py``), and ``bench`` / ``bench_train``

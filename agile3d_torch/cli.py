@@ -10,7 +10,10 @@ typed config by :func:`model_config_from_args`.
 
 ``--device``: ``""`` (the default) or ``cuda`` runs on the card, ``cpu`` on
 the CPU; a card that is asked for and missing is an error, never a silent
-CPU run (``engine/eval.py::resolve_device``).
+CPU run (``engine/eval.py::resolve_device``). The parallel flags
+(``--num_dp``, ``--sp``) run one process per rank: on the card on
+``nccl``, one card a rank, on the CPU on ``gloo``
+(``parallel/mesh.py::launch``).
 """
 
 from __future__ import annotations
@@ -19,19 +22,6 @@ import argparse
 import sys
 
 from agile3d_torch.config import BackboneConfig, ModelConfig
-
-# the JAX entry points' flags that the port does not take yet: the
-# parallel paths (queue A item 10)
-NOT_PORTED = {
-    "main": ("--num_dp",),
-    "eval_multi_obj": ("--sp", "--sp_backbone", "--scene_parallel"),
-}
-
-
-def not_ported_epilog(cli: str) -> str:
-    return ("Not ported yet (accepted by the JAX package's entry point): "
-            + ", ".join(NOT_PORTED[cli]) + ".")
-
 
 def add_reference_model_flags(p: argparse.ArgumentParser) -> None:
     """Register the reference's shared model flag block (main.py:36-55).
@@ -117,13 +107,14 @@ def check_val_batch_size(args) -> None:
 
 def run(parser: argparse.ArgumentParser, main, argv=None):
     """Parse ``argv`` and run ``main``; a scene over the card's memory
-    budget exits with one ``error: ...`` line and code 1, not a
-    traceback."""
+    budget, or a parallel layout that the machine cannot hold, exits with
+    one ``error: ...`` line and code 1, not a traceback."""
     from agile3d_torch.engine.eval import SceneTooLargeError
+    from agile3d_torch.parallel.mesh import ParallelLayoutError
 
     args = parser.parse_args(argv)
     try:
         return main(args)
-    except SceneTooLargeError as e:
+    except (SceneTooLargeError, ParallelLayoutError) as e:
         print(f"error: {e}", file=sys.stderr, flush=True)
         raise SystemExit(1) from None

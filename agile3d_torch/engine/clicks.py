@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from agile3d_torch.parallel.mesh import ONE_RANK, Axis, psum
+
 # pair distances computed per chunk of error rows: rows * N <= this
 _CHUNK_ELEMS = 1 << 26
 
@@ -156,26 +158,31 @@ def click_override_device(pred: torch.Tensor, vox: torch.Tensor,
 
 
 def iou_per_object(pred: torch.Tensor, labels: torch.Tensor,
-                   valid: torch.Tensor, max_obj: int = 10):
+                   valid: torch.Tensor, max_obj: int = 10,
+                   axis: Axis = ONE_RANK):
     """IoU per object id 1..max_obj as float32 [max_obj], and whether each
-    object is present in ``labels``; absent objects report 0."""
-    ious, present = [], []
-    for o in range(1, max_obj + 1):
-        p = (pred == o) & valid
-        g = (labels == o) & valid
-        inter = (p & g).sum()
-        union = p.sum() + g.sum() - inter
-        ious.append(inter.float() / torch.clamp(union, min=1).float())
-        present.append(g.sum() > 0)
-    return torch.stack(ious), torch.stack(present)
+    object is present in ``labels``; absent objects report 0. Over an axis
+    of several ranks, each holding some of the points, the integer counts
+    are summed over its ranks (exact, so every rank gets the one-process
+    values)."""
+    o = torch.arange(1, max_obj + 1, device=pred.device)[:, None]
+    p = (pred[None] == o) & valid
+    g = (labels[None] == o) & valid
+    inter, pc, gc = psum(torch.stack([(p & g).sum(-1), p.sum(-1),
+                                      g.sum(-1)]), axis)
+    union = pc + gc - inter
+    return inter.float() / torch.clamp(union, min=1).float(), gc > 0
 
 
-def mean_iou(pred: torch.Tensor, labels: torch.Tensor,
-             max_obj: int = 10) -> torch.Tensor:
+def mean_iou(pred: torch.Tensor, labels: torch.Tensor, max_obj: int = 10,
+             valid: torch.Tensor | None = None,
+             axis: Axis = ONE_RANK) -> torch.Tensor:
     """Mean IoU over the objects present in ``labels`` (a device scalar):
-    the scene's metric, on full-resolution labels."""
-    valid = torch.ones_like(labels, dtype=torch.bool)
-    ious, present = iou_per_object(pred, labels, valid, max_obj)
+    the scene's metric, on full-resolution labels (those where ``valid``,
+    all by default; over ``axis``, see ``iou_per_object``)."""
+    if valid is None:
+        valid = torch.ones_like(labels, dtype=torch.bool)
+    ious, present = iou_per_object(pred, labels, valid, max_obj, axis)
     return torch.where(present, ious, torch.zeros_like(ious)).sum() \
         / torch.clamp(present.sum(), min=1)
 

@@ -22,12 +22,15 @@ what the host loop writes without running the model. Both protocols:
 ``mode="multi"`` (round 0 clicks every object, ``max_num_clicks`` per
 object) and ``mode="single"`` (binarised labels, one click in round 0,
 ``max_num_clicks`` in all, the absolute click count in the CSV).
+With the engine's ``sp`` > 1 the rounds run sharded over its ranks
+(``parallel/sp_rollout.py``), the full-resolution points split alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from agile3d_torch.data.datasets import SceneBatch
 from agile3d_torch.engine.clicks import (
@@ -40,11 +43,20 @@ from agile3d_torch.engine.clicks import (
 )
 from agile3d_torch.models.agile3d import ClickState
 from agile3d_torch.ops.boundary_dist import boundary_distances_all
+from agile3d_torch.parallel.mesh import (
+    ONE_RANK,
+    Axis,
+    all_gather,
+    axis_index,
+    pmax,
+    pmin,
+    psum,
+)
 
 
 def error_clusters(pred: torch.Tensor, labels: torch.Tensor,
                    coords: torch.Tensor, valid: torch.Tensor,
-                   max_label: int):
+                   max_label: int, axis: Axis = ONE_RANK):
     """The error analysis of a batch of predictions: pred, labels [B, N]
     (labels in [0, max_label]), coords [B, N, 3], valid [B, N]. Returns
     (err [B, N], compact [B, N] = labels * k + pred, d [B, N] = boundary
@@ -53,23 +65,36 @@ def error_clusters(pred: torch.Tensor, labels: torch.Tensor,
     or its distance is not finite), k = max_label + 1. The rows come in
     the order ``build_pyramid`` enforces (sorted by packed key): the
     distance kernel's culling relies on it, and rows in another order give
-    the same values at many times the cost."""
+    the same values at many times the cost.
+
+    Over an ``sp`` axis of several ranks, pred and labels are this rank's
+    rows [B, Nl] (rows ``[r Nl, (r + 1) Nl)`` of the scene) and coords and
+    valid the whole scene's; the outputs are this rank's rows, the sizes
+    reduced over the ranks. The kernel reads every rank's clusters (one
+    all-gather) and computes this rank's error rows: the rows stay sorted,
+    so the culling holds and the bits are the one-process ones."""
     k = max_label + 1
     n_slots = k * k
-    err = valid & (pred != labels)
+    nl = pred.shape[1]
+    lo = axis_index(axis) * nl
+    err = valid[:, lo:lo + nl] & (pred != labels)
     compact = labels * k + pred
     cluster = torch.where(err, compact, -1).to(torch.int32)
-    # the kernel computes the error rows only (+inf elsewhere): no other
+    cluster_g = all_gather(cluster.T, axis).T
+    query = F.pad(err, (lo, valid.shape[1] - lo - nl))
+    # the kernel computes the query rows only (+inf elsewhere): no other
     # row's distance is read
-    d = boundary_distances_all(coords.contiguous(), cluster,
-                               valid.contiguous(), query=err.contiguous())
+    d = boundary_distances_all(coords.contiguous(), cluster_g.contiguous(),
+                               valid.contiguous(), query=query)
+    d = d[:, lo:lo + nl]
     neg_inf = torch.full((), float("-inf"), device=d.device)
     d = torch.where(err, d, neg_inf)
     segment = torch.where(err, compact, n_slots).long()
     sizes = torch.full((pred.shape[0], n_slots + 1), float("-inf"),
                        device=d.device).scatter_reduce(
         1, segment, d, "amax")[:, :n_slots]
-    sizes = torch.where(torch.isfinite(sizes), sizes, neg_inf)
+    # max is exact in any order
+    sizes = pmax(torch.where(torch.isfinite(sizes), sizes, neg_inf), axis)
     return err, compact, d, sizes
 
 
@@ -84,23 +109,33 @@ def reference_keys(max_label: int, device) -> torch.Tensor:
 @torch.no_grad()
 def simulate_click_device(pred: torch.Tensor, labels: torch.Tensor,
                           coords: torch.Tensor, valid: torch.Tensor, *,
-                          max_label: int = 10):
+                          max_label: int = 10, axis: Axis = ONE_RANK):
     """The click of an eval round >= 1 for one scene: the top error cluster
     by largest boundary distance (ties by the reference's order), its
     first row attaining that distance. pred, labels [N], coords [N, 3],
-    valid [N]. Returns (vox, obj, has_error) as device scalars."""
+    valid [N]. Returns (vox, obj, has_error) as device scalars. Over an
+    ``sp`` axis, pred and labels are this rank's rows and coords and valid
+    the whole scene's (``error_clusters``); the click is a ``pmax`` of the
+    distance, then a ``pmin`` of the first global row attaining it (the
+    one-process tie-break), the same on every rank."""
     err, compact, d, sizes = error_clusters(
-        pred[None], labels[None], coords[None], valid[None], max_label)
+        pred[None], labels[None], coords[None], valid[None], max_label, axis)
     err, compact, d, sizes = err[0], compact[0], d[0], sizes[0]
     big = torch.iinfo(torch.int64).max
     best = torch.argmin(torch.where(sizes == sizes.max(),
                                     reference_keys(max_label, d.device), big))
     score = torch.where(err & (compact == best), d,
                         torch.full((), float("-inf"), device=d.device))
-    n = pred.shape[0]
-    iota = torch.arange(n, device=d.device)
-    vox = torch.argmin(torch.where(score == score.max(), iota, n))
-    return vox.to(torch.int32), labels[vox].to(torch.int32), err.any()
+    nl, n = pred.shape[0], valid.shape[0]
+    lo = axis_index(axis) * nl
+    rows = lo + torch.arange(nl, device=d.device)
+    vox = pmin(torch.where(score == pmax(score.max(), axis), rows, n).min(),
+               axis)
+    mine = (vox >= lo) & (vox < lo + nl)
+    obj = psum(torch.where(mine, labels[(vox - lo).clamp(0, nl - 1)], 0),
+               axis)
+    has_error = psum(err.any().to(torch.int32), axis) > 0
+    return vox.to(torch.int32), obj.to(torch.int32), has_error
 
 
 @torch.no_grad()
@@ -108,32 +143,56 @@ def rollout_rounds(model, scene, vox: torch.Tensor, obj: torch.Tensor,
                    tim: torch.Tensor, count: torch.Tensor,
                    num_obj: torch.Tensor, labels: torch.Tensor,
                    labels_full: torch.Tensor, inverse_map: torch.Tensor,
-                   buckets: list[int], max_label: int) -> torch.Tensor:
+                   buckets: list[int], max_label: int,
+                   axis: Axis = ONE_RANK,
+                   full_valid: torch.Tensor | None = None) -> torch.Tensor:
     """One click round of one scene on the device for each entry of
     ``buckets``: the click-table width the decoder sees in that round. vox,
     obj, tim [MC]: the click table after round 0, with ``count`` (a device
     scalar) clicks; num_obj [1]; labels [N] (-1 on pad rows); labels_full
     and inverse_map [Nf]. Returns each round's mean IoU, [rounds] on the
-    device; nothing in the loop waits on the host."""
+    device; nothing in the loop waits on the host.
+
+    Over an ``sp`` axis of several ranks (``parallel/sp_rollout.py``):
+    scene and labels are this rank's rows, labels_full, inverse_map (into
+    the scene's rows) and full_valid its part of the full-resolution
+    points; the decoder is ``parallel/sp.py::forward_mask_local``, the IoU
+    and the click reduce over the ranks, and the click table stays the
+    same on every rank (each makes the same update from reduced values)."""
+    nl = labels.shape[0]
+    lo = axis_index(axis) * nl
     vox_valid = scene.vox_valid[0] & (labels >= 0)
-    raw = scene.raw[0]
     target = labels.clamp(min=0)
+    # the whole scene's coordinates and validity, gathered once
+    coords = all_gather(scene.raw[0].contiguous(), axis)
+    valid = all_gather(vox_valid, axis)
+    if axis.size == 1:
+        decode = lambda cs: model.forward_mask(scene, cs, num_obj)[
+            "pred_masks"]
+    else:
+        from agile3d_torch.parallel.sp import forward_mask_local
+
+        decode = lambda cs: forward_mask_local(model, scene, cs, num_obj,
+                                               axis)[-1]
     mc = vox.shape[0]
     done = torch.zeros((), dtype=torch.bool, device=vox.device)
     iou = None
     ious = []
     for width in buckets:
-        out = model.forward_mask(
-            scene, ClickState(vox[None, :width], obj[None, :width],
-                              tim[None, :width]), num_obj)
-        pred = out["pred_masks"][0].argmax(-1).to(torch.int32)
-        pred = click_override_device(pred, vox[:width], obj[:width])
-        new_iou = mean_iou(pred[inverse_map], labels_full, max_label)
+        pred = decode(ClickState(vox[None, :width], obj[None, :width],
+                                 tim[None, :width]))
+        pred = pred[0].argmax(-1).to(torch.int32)
+        # the clicks on this rank's rows
+        mine = vox[:width] - lo
+        mine = torch.where((mine >= 0) & (mine < nl), mine, -1)
+        pred = click_override_device(pred, mine, obj[:width])
+        new_iou = mean_iou(all_gather(pred, axis)[inverse_map], labels_full,
+                           max_label, full_valid, axis)
         iou = new_iou if iou is None else torch.where(done, iou, new_iou)
         ious.append(iou)
 
         new_vox, new_obj, has_err = simulate_click_device(
-            pred, target, raw, vox_valid, max_label=max_label)
+            pred, target, coords, valid, max_label=max_label, axis=axis)
         has_err = has_err & ~done
         done = ~has_err  # converged: no later round adds a click
         slot = count.clamp(0, mc - 1).long().reshape(1)
@@ -156,7 +215,7 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
     max_label = cfg.model.max_fg_objects
     scene = engine.run_backbone(batch)
 
-    n = scene.mask_feat.shape[1]
+    n = batch.sample_idx.shape[1]
     n_valid = int((batch.sample_idx[0] >= 0).sum())
     labels_v = batch.labels[0, :n_valid]
     num_obj = int(batch.num_obj[0])
@@ -186,14 +245,22 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
     labels_pad = np.full(n, -1, np.int32)
     labels_pad[:n_valid] = labels_v
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    ious = rollout_rounds(
-        engine.model, scene, t(clicks.vox[:mc]), t(clicks.obj[:mc]),
-        t(clicks.time[:mc]),
-        torch.tensor(clicks.count, dtype=torch.int32, device=dev),
-        torch.tensor([num_obj], dtype=torch.int32, device=dev),
-        t(labels_pad), t(batch.labels_full[0]),
-        t(batch.inverse_map[0].astype(np.int64)), buckets,
-        max_label).cpu().tolist()
+    table = (t(clicks.vox[:mc]), t(clicks.obj[:mc]), t(clicks.time[:mc]),
+             torch.tensor(clicks.count, dtype=torch.int32, device=dev),
+             torch.tensor([num_obj], dtype=torch.int32, device=dev))
+    labels_full = t(batch.labels_full[0])
+    inverse_map = t(batch.inverse_map[0].astype(np.int64))
+    if engine.sp > 1:
+        from agile3d_torch.parallel.sp_rollout import rollout_rounds_sp
+
+        ious = rollout_rounds_sp(engine.model, engine.sp_scene(scene),
+                                 *table, t(labels_pad), labels_full,
+                                 inverse_map, buckets, max_label,
+                                 engine.sp_mesh["sp"])
+    else:
+        ious = rollout_rounds(engine.model, scene, *table, t(labels_pad),
+                              labels_full, inverse_map, buckets, max_label)
+    ious = ious.cpu().tolist()
     for r, iou in enumerate(ious):
         rows.append(f"{instance_id} {scene_name} {tag} "
                     f"{click_column(mode, first + r, num_obj)} {iou}")

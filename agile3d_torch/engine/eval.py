@@ -17,13 +17,21 @@ card runs the scene before.
 Before any backbone work, ``check_single_chip_rows`` holds the scene's
 padded row count against the card's memory (``utils/costs.py``): a scene
 over the budget raises ``SceneTooLargeError`` and the CLIs exit with one
-``error:`` line instead of running out of device memory mid-UNet.
+``error:`` line instead of running out of device memory mid-UNet (the
+voxel-sharded backbone, which exists for such scenes, skips the check).
+
+``InteractiveEngine(sp=N)`` shards the voxel axis over the N ranks of a
+``torch.distributed`` group (``parallel/``); ``evaluate_dataset_parallel``
+evaluates scenes on several devices at once, a thread each.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import random
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -70,10 +78,10 @@ def check_single_chip_rows(n_rows: int) -> None:
     if est > budget:
         raise SceneTooLargeError(
             f"scene pads to {n_rows} voxel rows (~{est:.1f} GiB estimated "
-            f"eval footprint > {budget:.2f} GiB on one card): crop the scan "
-            f"(reference demo.md guidance) or raise the voxel size "
-            f"(--voxel_size); sharding the voxel axis over several cards "
-            f"(--sp) is not ported yet")
+            f"eval footprint > {budget:.2f} GiB on one card): rerun with "
+            f"--sp N --sp_backbone to shard the voxel axis over N cards, "
+            f"crop the scan (reference demo.md guidance), or raise the voxel "
+            f"size (--voxel_size)")
 
 
 def resolve_device(device) -> torch.device:
@@ -100,16 +108,46 @@ def stack_clicks(clicks: list[HostClicks], mc: int, device) -> ClickState:
 
 
 class InteractiveEngine:
-    """Holds the model on its device and the per-batch device transfer."""
+    """Holds the model on its device and the per-batch device transfer.
+
+    ``sp`` > 1 shards the decoder's voxel axis over the ``sp`` ranks of the
+    current ``torch.distributed`` group (``parallel/sp.py``; every rank
+    builds its engine): the host loop (``run_mask``) and the device rollout
+    both take it. ``sp_backbone`` also shards the backbone
+    (``parallel/sp_backbone.py``; needs ``sp`` > 1, one scene with the
+    identity per-sample map); without it every rank runs the whole
+    backbone and keeps its rows. The sharded scene, and the partitioned
+    pyramid, are kept per scene."""
 
     CLICK_BUCKETS = (32, 64, 128, 256)
 
-    def __init__(self, cfg: Config, model: Agile3D, device="cuda"):
+    def __init__(self, cfg: Config, model: Agile3D, device="cuda", sp: int = 1,
+                 sp_backbone: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._dev_batch = None
         self._dev_cache = None
+        self.sp = sp
+        self.sp_backbone = sp_backbone
+        if sp_backbone and sp <= 1:
+            raise ValueError("sp_backbone requires sp > 1")
+        if sp > 1:
+            from agile3d_torch.parallel.mesh import make_mesh
+            from agile3d_torch.parallel.sp import make_forward_mask_sp
+
+            self.sp_mesh = make_mesh(n_dp=1, n_sp=sp, device=self.device)
+            self._fm_sp, self._shard_scene = make_forward_mask_sp(
+                self.sp_mesh, cfg.model)
+            self._sp_scene = (None, None)
+            if sp_backbone:
+                from agile3d_torch.parallel.sp_backbone import (
+                    make_forward_backbone_sp,
+                )
+
+                self._bb_sp = make_forward_backbone_sp(self.sp_mesh,
+                                                       cfg.model)
+                self._sp_pyr = (None, None)
 
     def device_batch(self, batch: SceneBatch):
         """(pyramid, feats, raw, sample_idx) of ``batch`` on the device,
@@ -126,15 +164,56 @@ class InteractiveEngine:
 
     @torch.no_grad()
     def run_backbone(self, batch: SceneBatch, training: bool = False):
-        """Scene features of ``batch``. ``training`` normalises with the
-        batch's statistics, as the supervised step will; the new running
-        statistics are dropped (the step commits its own). Raises
-        ``SceneTooLargeError`` before any transfer when the scene is over
-        the card's memory budget."""
+        """Scene features of ``batch``: of this rank's rows under
+        ``sp_backbone`` (eval), else of the whole scene. ``training``
+        normalises with the batch's statistics, as the supervised step
+        will; the new running statistics are dropped (the step commits its
+        own). Raises ``SceneTooLargeError`` before any transfer when the
+        scene is over the card's memory budget (not under ``sp_backbone``,
+        which exists for such scenes)."""
+        if self.sp_backbone and not training:
+            return self._run_backbone_sp(batch)
         check_single_chip_rows(batch.pyramid.levels[0].grid.shape[0])
         pyr, feats, raw, sample_idx = self.device_batch(batch)
         return self.model.forward_backbone(pyr, feats, raw, sample_idx,
                                            {} if training else None)
+
+    def _run_backbone_sp(self, batch: SceneBatch):
+        """The voxel-sharded backbone: the pyramid partitioned over the sp
+        ranks (once per batch) and the halo-exchange UNet."""
+        from agile3d_torch.parallel.sp import shard_rows
+        from agile3d_torch.parallel.sp_backbone import (
+            local_pyramid,
+            partition_pyramid,
+        )
+
+        if batch.sample_idx.shape[0] != 1:
+            raise ValueError("sp_backbone runs one scene (B = 1), the eval "
+                             "case it exists for")
+        nv = batch.pyramid.levels[0].num_valid
+        si = batch.sample_idx[0]
+        if not (np.array_equal(si[:nv], np.arange(nv, dtype=si.dtype))
+                and (si[nv:] == -1).all()
+                and len(si) == batch.pyramid.levels[0].grid.shape[0]):
+            raise ValueError("sp_backbone requires the identity per-sample "
+                             "map (single-scene collation)")
+        axis = self.sp_mesh["sp"]
+        if self._sp_pyr[0] is not batch:
+            sp_pyr = partition_pyramid(batch.pyramid, self.sp)
+            self._sp_pyr = (batch, local_pyramid(sp_pyr, axis, self.device))
+        rows = lambda a: shard_rows(torch.from_numpy(a), axis, 0).to(
+            self.device)
+        scene = self._bb_sp(self.model, self._sp_pyr[1], rows(batch.feats),
+                            rows(batch.raw))
+        self._sp_scene = (scene, scene)
+        return scene
+
+    def sp_scene(self, scene):
+        """This rank's rows of ``scene`` (kept per scene); a scene from the
+        sharded backbone is one already."""
+        if self._sp_scene[0] is not scene:
+            self._sp_scene = (scene, self._shard_scene(scene))
+        return self._sp_scene[1]
 
     def _click_bucket(self, count: int) -> int:
         for b in self.CLICK_BUCKETS:
@@ -148,8 +227,18 @@ class InteractiveEngine:
         click bucket that holds it. Returns (outputs, argmax labels [B, N])."""
         dev = self.device
         cs = stack_clicks([clicks], self._click_bucket(clicks.count), dev)
-        out = self.model.forward_mask(
-            scene, cs, torch.tensor([num_obj], dtype=torch.int32, device=dev))
+        num_obj_dev = torch.tensor([num_obj], dtype=torch.int32, device=dev)
+        if self.sp > 1:
+            # the masks of this rank's rows; every rank reads the whole
+            # prediction, as JAX's host reads the whole sharded array
+            from agile3d_torch.parallel.mesh import all_gather
+
+            out = self._fm_sp(self.model, self.sp_scene(scene), cs,
+                              num_obj_dev)
+            pred = out["pred_masks"].argmax(dim=-1).to(torch.int32)
+            return out, all_gather(pred.T.contiguous(),
+                                   self.sp_mesh["sp"]).T
+        out = self.model.forward_mask(scene, cs, num_obj_dev)
         return out, out["pred_masks"].argmax(dim=-1)
 
     @torch.no_grad()
@@ -289,4 +378,36 @@ def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,
             if i % 10 == 0:
                 log(f"[{i + 1}/{len(dataset)}] {batch.scene_names[0]} "
                     f"final IoU {float(rows[-1].split(' ')[4]):.4f}")
+    return results_file
+
+
+def evaluate_dataset_parallel(cfg: Config, model: Agile3D, dataset,
+                              results_file: str, *, devices, mode: str = "multi",
+                              max_num_clicks: int = 20, seed: int = 42,
+                              log=print) -> str:
+    """Scene-parallel evaluation: one worker thread per device in
+    ``devices``, each with its own engine and its own copy of the weights,
+    takes every len(devices)-th scene through the host loop. Scene i's
+    clicks are drawn from ``random.Random(seed + i)``, so the rows do not
+    depend on the device count; they are written in dataset order."""
+    results: dict[int, list[str]] = {}
+    lock = threading.Lock()
+
+    def worker(d: int, device):
+        engine = InteractiveEngine(cfg, copy.deepcopy(model), device)
+        for i in range(d, len(dataset), len(devices)):
+            batch = collate_scenes([dataset[i]], cfg.buckets)
+            rows = evaluate_scene(engine, batch, instance_id=i,
+                                  rng=random.Random(seed + i),
+                                  max_num_clicks=max_num_clicks, mode=mode)
+            with lock:
+                results[i] = rows
+            log(f"[dev {d}] scene {i + 1}/{len(dataset)} done")
+
+    with ThreadPoolExecutor(len(devices)) as ex:
+        for fu in [ex.submit(worker, d, dev) for d, dev in enumerate(devices)]:
+            fu.result()
+    with open(results_file, "w") as f:
+        for i in range(len(dataset)):
+            f.write("\n".join(results[i]) + "\n")
     return results_file

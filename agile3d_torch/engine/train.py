@@ -171,6 +171,25 @@ def _batch_miou(pred, labels, valid, num_obj, max_obj):
     return _per_sample_iou(pred, labels, valid, num_obj, max_obj).mean()
 
 
+def supervised_forward(cfg: Config, model: Agile3D, wd: dict, device_batch,
+                       clicks: ClickState, labels: torch.Tensor,
+                       num_obj: torch.Tensor, dropout_gen, bn_stats: dict):
+    """The supervised step's forward, with gradients: the backbone in
+    training mode (each BatchNorm's new running statistics land in
+    ``bn_stats``), the decoder, the click-weighted losses. Returns (out,
+    target, vox_valid, losses, total); ``wd`` is ``loss_weight_dict``'s."""
+    pyr, feats, raw, sample_idx = device_batch
+    scene = model.forward_backbone(pyr, feats, raw, sample_idx, bn_stats)
+    out = model.forward_mask(scene, clicks, num_obj, train_gen=dropout_gen)
+    target = labels.clamp(min=0)
+    vox_valid = scene.vox_valid & (labels >= 0)
+    weights = click_loss_weights(scene.raw, vox_valid, clicks.vox,
+                                 clicks.vox >= 0, cfg.loss)
+    losses = criterion_forward(out["all_masks"], target, weights, vox_valid,
+                               cfg.loss)
+    return out, target, vox_valid, losses, total_loss(losses, wd)
+
+
 def make_train_step(cfg: Config, model: Agile3D, optimizer: Optimizer):
     """The supervised step: forward with gradients through the decoder and
     the backbone (training-mode BatchNorm), losses, backward, clipped
@@ -183,21 +202,12 @@ def make_train_step(cfg: Config, model: Agile3D, optimizer: Optimizer):
                    dropout_gen: torch.Generator | None = None) -> dict:
         """``dropout_gen`` draws the decoder's dropout masks (``cfg.model.
         dropout`` > 0); None runs without dropout."""
-        pyr, feats, raw, sample_idx = device_batch
         optimizer.zero_grad()
         bn_stats = {}
         with torch.enable_grad():
-            scene = model.forward_backbone(pyr, feats, raw, sample_idx,
-                                           bn_stats)
-            out = model.forward_mask(scene, clicks, num_obj,
-                                     train_gen=dropout_gen)
-            target = labels.clamp(min=0)
-            vox_valid = scene.vox_valid & (labels >= 0)
-            weights = click_loss_weights(scene.raw, vox_valid, clicks.vox,
-                                         clicks.vox >= 0, cfg.loss)
-            losses = criterion_forward(out["all_masks"], target, weights,
-                                       vox_valid, cfg.loss)
-            tot = total_loss(losses, wd)
+            out, target, vox_valid, losses, tot = supervised_forward(
+                cfg, model, wd, device_batch, clicks, labels, num_obj,
+                dropout_gen, bn_stats)
             tot.backward()
         gnorm = optimizer.step()
         commit_bn_stats(bn_stats)

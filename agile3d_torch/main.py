@@ -24,15 +24,19 @@ present (``utils/misc.py::setup_wandb``), else nowhere.
         [--resume output/RUN/checkpoint.pth] [--ckpt_epochs 1]
 
 ``--device_rollout`` runs each step's click rollout on the device
-(``engine/device_train.py``) instead of the host loop.
+(``engine/device_train.py``) instead of the host loop. ``--num_dp N``
+trains data-parallel on N ranks (``parallel/train.py``; ``batch_size x N``
+scenes a step, the rollout on the device): the ranks are spawned here
+(``nccl``, one card each; ``gloo`` with ``--device cpu``) or are the
+caller's group (``torchrun``); rank 0 logs, validates and writes the
+checkpoints while the others wait.
 ``--num_workers`` batches are assembled ahead of the step on a host thread
 (``data/prefetch.py``). ``--dataset_mode single_obj`` trains on the
 single-object dataset and validates as the JAX package's ``main.py`` does
 (the multi-object protocol and evaluator on ``--val_list``).
 
 Takes the flags of the JAX package's ``main.py``, the reference model
-block among them (``cli.py``), except data parallelism (``--num_dp``),
-which is not ported yet.
+block among them (``cli.py``).
 """
 
 from __future__ import annotations
@@ -45,12 +49,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from agile3d_torch.cli import (
     add_reference_model_flags,
     device_arg,
     model_config_from_args,
-    not_ported_epilog,
     run,
 )
 from agile3d_torch.config import Config, LossConfig, TrainConfig
@@ -67,13 +71,14 @@ from agile3d_torch.engine.train import (
 )
 from agile3d_torch.evaluation.evaluators import EvaluatorMO
 from agile3d_torch.models.agile3d import init_agile3d
+from agile3d_torch.parallel.mesh import barrier, launch, make_mesh, rank_device
+from agile3d_torch.parallel.train import dp_train_one_epoch, make_dp_train_step
 from agile3d_torch.utils.ckpt import load_training_checkpoint, save_checkpoint
 from agile3d_torch.utils.misc import MetricLogger, setup_wandb
 
 
 def get_args_parser():
-    p = argparse.ArgumentParser("AGILE3D training (PyTorch)", add_help=False,
-                                epilog=not_ported_epilog("main"))
+    p = argparse.ArgumentParser("AGILE3D training (PyTorch)", add_help=False)
     p.add_argument("--dataset_mode", default="multi_obj")
     p.add_argument("--scan_folder", default="data/ScanNet/scans", type=str)
     p.add_argument("--train_list", default="data/ScanNet/train_list.json")
@@ -100,6 +105,9 @@ def get_args_parser():
                    help="batches assembled ahead of the step on a host "
                         "thread (the reference's DataLoader workers)")
     p.add_argument("--val_batch_size", default=1, type=int)
+    p.add_argument("--num_dp", default=1, type=int,
+                   help="data-parallel ranks (scenes a step = batch_size * "
+                        "num_dp)")
     p.add_argument("--device_rollout", action="store_true",
                    help="run the training click rollout on the device "
                         "instead of the per-round host loop")
@@ -136,23 +144,39 @@ def _wandb():
         wandb = None
     if wandb is not None and setup_wandb():
         return wandb
-
-    class _Noop:
-        def init(self, *a, **k): pass
-        def log(self, *a, **k): pass
     return _Noop()
+
+
+class _Noop:
+    """A wandb that logs nowhere."""
+
+    def init(self, *a, **k): pass
+    def log(self, *a, **k): pass
 
 
 def main(args, log=print) -> dict:
     """Train; returns {"epochs": [per-epoch averages], "val": {epoch:
     evaluator dict}, "val_losses": {epoch: the validation losses' means},
     "start_epoch": the first epoch run, "model": the trained model,
-    "optimizer": its optimizer}."""
+    "optimizer": its optimizer}, rank 0's (None on the other ranks of a
+    caller's group). With ``--num_dp`` > 1 the ranks run ``_train`` (when
+    they are spawned here, ``log`` is pickled to them)."""
     if args.ckpt_epochs < 1:
         raise SystemExit(f"--ckpt_epochs must be >= 1, got "
                          f"{args.ckpt_epochs}")
-    device = resolve_device(device_arg(args))
-    wandb = _wandb()
+    if args.num_dp < 1:
+        raise SystemExit(f"--num_dp must be >= 1, got {args.num_dp}")
+    if args.num_dp > 1:
+        return launch(args.num_dp, _train, args, log, device=device_arg(args))
+    return _train(args, log)
+
+
+def _train(args, log) -> dict | None:
+    num_dp = args.num_dp
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    log = log if lead else (lambda *a: None)
+    device = resolve_device(rank_device(device_arg(args)))
+    wandb = _wandb() if lead else _Noop()
     wandb.init(project="AGILE3D")
     cfg = build_config(args)
     seed = args.seed
@@ -174,12 +198,18 @@ def main(args, log=print) -> dict:
                                 voxel_size=cfg.model.voxel_size)
 
     engine = InteractiveEngine(cfg, model, device)
-    steps_per_epoch = max(1, len(dataset_train) // cfg.train.batch_size)
+    steps_per_epoch = max(
+        1, len(dataset_train) // (cfg.train.batch_size * num_dp))
     optimizer, _ = make_optimizer(engine.model, cfg, steps_per_epoch)
-    train_step = make_train_step(cfg, engine.model, optimizer)
+    if num_dp > 1:
+        mesh = make_mesh(n_dp=num_dp, n_sp=1, device=device)
+        train_step = make_dp_train_step(cfg, engine.model, optimizer, mesh)
+    else:
+        train_step = make_train_step(cfg, engine.model, optimizer)
 
     val_dir = os.path.join(args.output_dir, "valResults")
-    os.makedirs(val_dir, exist_ok=True)
+    if lead:
+        os.makedirs(val_dir, exist_ok=True)
     if args.resume:
         epoch = load_training_checkpoint(args.resume, engine.model, optimizer)
         if epoch is not None:
@@ -190,10 +220,20 @@ def main(args, log=print) -> dict:
     log("Start training")
     start = time.time()
     for epoch in range(args.start_epoch, cfg.train.epochs):
-        stats = train_one_epoch(engine, train_step, dataset_train, cfg, epoch,
-                                np_rng=np_rng, py_rng=py_rng, log=log,
-                                device_rollout=args.device_rollout)
+        if num_dp > 1:
+            stats = dp_train_one_epoch(cfg, mesh, engine, train_step,
+                                       dataset_train, epoch, np_rng=np_rng,
+                                       py_rng=py_rng, log=log)
+        else:
+            stats = train_one_epoch(engine, train_step, dataset_train, cfg,
+                                    epoch, np_rng=np_rng, py_rng=py_rng,
+                                    log=log,
+                                    device_rollout=args.device_rollout)
         history["epochs"].append(stats)
+        if not lead:
+            # rank 0 checkpoints and validates
+            barrier()
+            continue
         epoch_log = {"train/epoch": epoch, "train/loss_epoch": stats["loss"]}
         if "mIoU" in stats:
             epoch_log["train/mIoU_epoch"] = stats["mIoU"]
@@ -226,15 +266,15 @@ def main(args, log=print) -> dict:
                        for k, v in res.items()})
             wandb.log({f"val/{k}_epoch": v
                        for k, v in history["val_losses"][epoch].items()})
+        barrier()
     log(f"Training time "
         f"{datetime.timedelta(seconds=int(time.time() - start))}")
-    return history
+    return history if lead else None
 
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser("AGILE3D training script",
-                                     parents=[get_args_parser()],
-                                     epilog=not_ported_epilog("main"))
+                                     parents=[get_args_parser()])
     run_id = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
 
     def main_in_run_dir(args):

@@ -106,8 +106,10 @@ class BatchNorm(nn.Module):
         self.bn = _BNStats(c)
         self.momentum = momentum
 
-    def forward(self, x, valid, bn_stats=None, cast=_same):
-        """``cast`` gives the weight and bias in the compute dtype."""
+    def forward(self, x, valid, bn_stats=None, cast=_same, reduce=None):
+        """``cast`` gives the weight and bias in the compute dtype;
+        ``reduce`` sums the batch's moments over the ranks that hold its
+        other rows (``ops/norm.py::batch_norm_train``)."""
         s = self.bn
         weight, bias = cast(s.weight), cast(s.bias)
         if bn_stats is None:
@@ -115,7 +117,7 @@ class BatchNorm(nn.Module):
                               s.running_var)
         y, mean, var = batch_norm_train(x, valid, weight, bias,
                                         s.running_mean, s.running_var,
-                                        self.momentum)
+                                        self.momentum, reduce)
         bn_stats[s] = (mean, var)
         return y
 
@@ -143,13 +145,12 @@ class BasicBlock(nn.Module):
                                          BatchNorm(planes, momentum))
                            if cin != planes else None)
 
-    def forward(self, x, k3, valid, banded: bool, bn_stats=None, cast=_same):
-        conv3 = _conv3_banded if banded else sparse_conv
-        out = torch.relu(self.norm1(conv3(x, k3, cast(self.conv1.kernel)),
-                                    valid, bn_stats, cast))
-        out = self.norm2(conv3(out, k3, cast(self.conv2.kernel)), valid,
-                         bn_stats, cast)
-        return torch.relu(out + _residual(self, x, valid, bn_stats, cast))
+    def forward(self, x, conv3, norm, cast=_same):
+        """``conv3(x, w)``: the stage's k3 conv; ``norm(module, x)``: its
+        BatchNorm (``Res16UNet.forward``'s ``run_stage``)."""
+        out = torch.relu(norm(self.norm1, conv3(x, cast(self.conv1.kernel))))
+        out = norm(self.norm2, conv3(out, cast(self.conv2.kernel)))
+        return torch.relu(out + _residual(self, x, norm, cast))
 
 
 class Bottleneck(nn.Module):
@@ -172,27 +173,25 @@ class Bottleneck(nn.Module):
                                          BatchNorm(out, momentum))
                            if cin != out else None)
 
-    def forward(self, x, k3, valid, banded: bool, bn_stats=None, cast=_same):
-        conv3 = _conv3_banded if banded else sparse_conv
-        out = torch.relu(self.norm1(linear(x, cast(self.conv1.kernel)), valid,
-                                    bn_stats, cast))
-        out = torch.relu(self.norm2(conv3(out, k3, cast(self.conv2.kernel)),
-                                    valid, bn_stats, cast))
-        out = self.norm3(linear(out, cast(self.conv3.kernel)), valid,
-                         bn_stats, cast)
-        return torch.relu(out + _residual(self, x, valid, bn_stats, cast))
+    def forward(self, x, conv3, norm, cast=_same):
+        """As ``BasicBlock.forward``."""
+        out = torch.relu(norm(self.norm1, linear(x, cast(self.conv1.kernel))))
+        out = torch.relu(norm(self.norm2, conv3(out,
+                                                cast(self.conv2.kernel))))
+        out = norm(self.norm3, linear(out, cast(self.conv3.kernel)))
+        return torch.relu(out + _residual(self, x, norm, cast))
 
 
 _BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
 
 
-def _residual(block, x, valid, bn_stats, cast):
+def _residual(block, x, norm, cast):
     """The block's input, through its 1x1 downsample and BatchNorm when it
     has one."""
     if block.downsample is None:
         return x
-    conv, norm = block.downsample
-    return norm(linear(x, cast(conv.kernel)), valid, bn_stats, cast)
+    conv, bn = block.downsample
+    return norm(bn, linear(x, cast(conv.kernel)))
 
 
 def _conv3_banded(x, k3, w):
@@ -312,8 +311,8 @@ class Res16UNet(nn.Module):
         flag = self.cfg.banded_conv
         return x.is_cuda if flag is None else bool(flag)
 
-    def _stem(self, feats, lv0, training: bool, w):
-        if (self._use_banded(feats) and not training
+    def _stem(self, feats, lv0, training: bool, w, banded: bool):
+        if (banded and not training
                 and self.cfg.conv1_kernel_size == 5
                 and lv0.k5.shape[0] >= BANDED_MIN_ROWS):
             return banded_stem_conv(feats, lv0.k5, w)
@@ -341,13 +340,19 @@ class Res16UNet(nn.Module):
         return cached[1].__getitem__
 
     def forward(self, pyr: PaddedPyramid, feats: torch.Tensor,
-                bn_stats: dict | None = None, compute_dtype=None):
+                bn_stats: dict | None = None, compute_dtype=None,
+                rows=None):
         """``bn_stats``: None for eval; a dict for training (batch
         statistics; the new running statistics land in it).
         ``compute_dtype``: None (float32) or ``torch.bfloat16``, the JAX
-        package's bf16 policy (module docstring)."""
+        package's bf16 policy (module docstring). ``rows``: None when
+        ``pyr`` holds every row; a rank's block of a row-sharded pyramid
+        gives its hooks (``parallel/sp_backbone.py::RowShards``: ``banded``
+        False, ``exchange(x, level)`` appends the halo rows a conv on that
+        level's maps reads, ``reduce`` sums BatchNorm's moments)."""
         lv = pyr.levels
-        use_banded = self._use_banded(feats)
+        rows = rows or _ALL_ROWS
+        use_banded = rows.banded and self._use_banded(feats)
         training = bn_stats is not None
         cast = self._caster(compute_dtype, training)
         if compute_dtype is not None:
@@ -357,23 +362,33 @@ class Res16UNet(nn.Module):
             # the stem's and the up and down convs' BatchNorm: in f32, the
             # output back in the compute dtype
             if compute_dtype is None:
-                return norm(x, valid, bn_stats)
-            return norm(x.float(), valid, bn_stats, cast).to(compute_dtype)
+                return norm(x, valid, bn_stats, cast, rows.reduce)
+            return norm(x.float(), valid, bn_stats, cast,
+                        rows.reduce).to(compute_dtype)
 
         def run_stage(stage, x, level_idx):
             level = lv[level_idx]
             banded = (use_banded and level_idx < BANDED_LEVELS
                       and level.k3.shape[0] >= BANDED_MIN_ROWS)
+            conv = _conv3_banded if banded else sparse_conv
+
+            def conv3(x, w):
+                return conv(rows.exchange(x, level), level.k3, w)
+
+            def norm(module, x):
+                return module(x, level.valid, bn_stats, cast, rows.reduce)
+
             for blk in stage:
-                x = blk(x, level.k3, level.valid, banded, bn_stats, cast)
+                x = blk(x, conv3, norm, cast)
             return x
 
-        stem = self._stem(feats, lv[0], training, cast(self.conv0p1s1.kernel))
+        stem = self._stem(rows.exchange(feats, lv[0]), lv[0], training,
+                          cast(self.conv0p1s1.kernel), use_banded)
         out = torch.relu(bn(self.bn0, stem, lv[0].valid))
         skips = [out]
         for i, name in enumerate(("conv1p1s2", "conv2p2s2", "conv3p4s2",
                                   "conv4p8s2")):
-            out = sparse_conv(out, lv[i].down,
+            out = sparse_conv(rows.exchange(out, lv[i]), lv[i].down,
                               cast(getattr(self, name).kernel))
             out = torch.relu(bn(getattr(self, f"bn{i + 1}"), out,
                                 lv[i + 1].valid))
@@ -384,7 +399,8 @@ class Res16UNet(nn.Module):
         for j, name in enumerate(("convtr4p16s2", "convtr5p8s2",
                                   "convtr6p4s2", "convtr7p2s2")):
             i, tgt = 4 + j, 3 - j
-            out = sparse_conv_transpose(out, lv[tgt].up_parent,
+            out = sparse_conv_transpose(rows.exchange(out, lv[tgt + 1]),
+                                        lv[tgt].up_parent,
                                         lv[tgt].up_offset,
                                         cast(getattr(self, name).kernel))
             out = torch.relu(bn(getattr(self, f"bntr{i}"), out,
@@ -393,6 +409,20 @@ class Res16UNet(nn.Module):
             out = run_stage(getattr(self, f"block{i + 1}"), out, tgt)
             feature_maps.append(out)
         return feature_maps
+
+
+class _AllRows:
+    """``Res16UNet.forward``'s hooks when the pyramid holds every row."""
+
+    banded = True
+    reduce = None
+
+    @staticmethod
+    def exchange(x, level):
+        return x
+
+
+_ALL_ROWS = _AllRows()
 
 
 @torch.no_grad()

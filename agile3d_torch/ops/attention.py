@@ -110,13 +110,50 @@ def mha(q_in, k_in, v_in, num_heads: int, in_proj_weight, in_proj_bias,
     """q_in [B, Lq, E]; k_in/v_in [B, Lk, E]; attn_bias [B, Lq, Lk] or
     [B, 1, Lk] additive, broadcast over heads; ``dropout_rate`` and
     ``generator``: the attention probabilities' dropout."""
-    w_q, w_k, w_v = in_proj_weight.chunk(3, dim=0)
-    b_q, b_k, b_v = in_proj_bias.chunk(3, dim=0)
-    q = _query_heads(q_in, w_q, b_q, num_heads)
-    k = _heads(k_in, w_k, b_k, num_heads)
-    v = _heads(v_in, w_v, b_v, num_heads)
+    q, k, v = project_qkv(q_in, k_in, v_in, num_heads, in_proj_weight,
+                          in_proj_bias)
     return _output(_attend(q, k, v, attn_bias, dropout_rate, generator),
                    out_weight, out_bias)
+
+
+def project_qkv(q_in, k_in, v_in, num_heads: int, in_proj_weight,
+                in_proj_bias):
+    """The heads of the packed input projection: q (times hd^-0.5), k, v,
+    each [B, L, H, hd]."""
+    w_q, w_k, w_v = in_proj_weight.chunk(3, dim=0)
+    b_q, b_k, b_v = in_proj_bias.chunk(3, dim=0)
+    return (_query_heads(q_in, w_q, b_q, num_heads),
+            _heads(k_in, w_k, b_k, num_heads),
+            _heads(v_in, w_v, b_v, num_heads))
+
+
+def online_softmax(q, k, v, chunk: int, attn_bias=None, bias_fn=None):
+    """The online softmax's state over the keys in chunks of ``chunk`` rows
+    (which divides the key count): running max m [B, H, Lq] (from
+    ``NEG_INF``), denominator l [B, H, Lq] and numerator acc [B, H, Lq, hd],
+    all f32. q [B, Lq, H, hd], k / v [B, Lk, H, hd]; the bias as in
+    ``mha_chunked_keys``. The output is ``acc / max(l, 1e-30)``; the voxel-
+    sharded decoder (``parallel/sp.py``) combines the ranks' states first."""
+    b, lq, num_heads, hd = q.shape
+    dev = q.device
+    m = torch.full((b, num_heads, lq), NEG_INF, device=dev)
+    l = torch.zeros((b, num_heads, lq), device=dev)
+    acc = torch.zeros((b, num_heads, lq, hd), device=dev)
+    for start in range(0, k.shape[1], chunk):
+        keys = slice(start, start + chunk)
+        logits = _einsum("bqhd,bkhd->bhqk", q, k[:, keys])
+        if bias_fn is not None:
+            logits = logits + bias_fn(start, chunk)[:, None]
+        elif attn_bias is not None:
+            logits = logits + attn_bias[:, None, :, keys]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + _einsum("bhqk,bkhd->bhqd", p,
+                                               v[:, keys])
+        m = m_new
+    return m, l, acc
 
 
 def mha_chunked_keys(q_in, k_in, v_in, num_heads: int, in_proj_weight,
@@ -133,30 +170,9 @@ def mha_chunked_keys(q_in, k_in, v_in, num_heads: int, in_proj_weight,
             attn_bias = bias_fn(0, lk)
         return mha(q_in, k_in, v_in, num_heads, in_proj_weight, in_proj_bias,
                    out_weight, out_bias, attn_bias)
-    w_q, w_k, w_v = in_proj_weight.chunk(3, dim=0)
-    b_q, b_k, b_v = in_proj_bias.chunk(3, dim=0)
-    q = _query_heads(q_in, w_q, b_q, num_heads)
-    k = _heads(k_in, w_k, b_k, num_heads)
-    v = _heads(v_in, w_v, b_v, num_heads)
-    hd = q.shape[-1]
-    dev = q.device
-    m = torch.full((b, num_heads, lq), NEG_INF, device=dev)
-    l = torch.zeros((b, num_heads, lq), device=dev)
-    acc = torch.zeros((b, num_heads, lq, hd), device=dev)
-    for start in range(0, lk, chunk):
-        keys = slice(start, start + chunk)
-        logits = _einsum("bqhd,bkhd->bhqk", q, k[:, keys])
-        if bias_fn is not None:
-            logits = logits + bias_fn(start, chunk)[:, None]
-        elif attn_bias is not None:
-            logits = logits + attn_bias[:, None, :, keys]
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        scale = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new[..., None])
-        l = l * scale + p.sum(dim=-1)
-        acc = acc * scale[..., None] + _einsum("bhqk,bkhd->bhqd", p,
-                                               v[:, keys])
-        m = m_new
+    q, k, v = project_qkv(q_in, k_in, v_in, num_heads, in_proj_weight,
+                          in_proj_bias)
+    _, l, acc = online_softmax(q, k, v, chunk, attn_bias, bias_fn)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return _output(out.transpose(1, 2).reshape(b, lq, e), out_weight,
                    out_bias)

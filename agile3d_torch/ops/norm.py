@@ -26,20 +26,25 @@ def batch_norm(x: torch.Tensor, valid: torch.Tensor, weight: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, valid: torch.Tensor,
                      weight: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
-                     momentum: float = 0.02):
+                     momentum: float = 0.02, reduce=None):
     """Training-mode BatchNorm over the valid rows of x [N, C]: batch mean,
     biased variance for the normalisation, unbiased variance for the
     running statistics, ``running = (1 - m) * running + m * batch``; rows
     where ``valid`` is False come out exactly 0. Returns (y, new_mean,
     new_var); the running buffers are not touched (the caller commits the
-    new statistics, detached)."""
+    new statistics, detached). ``reduce``: the sum over the processes that
+    hold the batch's other rows (``parallel/mesh.py::psum`` on their axis),
+    applied to the count, the sum and the sum of squares; None when x holds
+    every row."""
+    reduce = reduce or (lambda t: t)
     m = valid.to(x.dtype)
-    n = torch.clamp(m.sum(), min=1)
-    mean = (x * m[:, None]).sum(0) / n
+    n = torch.clamp(reduce(m.sum()), min=1)
+    mean = reduce((x * m[:, None]).sum(0)) / n
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     d = torch.where(valid[:, None], x - mean, zero)
-    var = (d * d).sum(0) / n
-    var_unbiased = (d * d).sum(0) / torch.clamp(n - 1, min=1)
+    ss = reduce((d * d).sum(0))
+    var = ss / n
+    var_unbiased = ss / torch.clamp(n - 1, min=1)
     with torch.no_grad():
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * var_unbiased

@@ -3,10 +3,10 @@ JAX package's ``utils/misc.py``, which replaces the reference's
 ``utils/misc.py:33-252`` MetricLogger / SmoothedValue).
 
 The meters' window, global average and ``log_every`` lines are the JAX
-package's. Across processes: ``reduce_dict`` and
-``synchronize_between_processes`` are the identity while no
-``torch.distributed`` process group of more than one process exists, and
-refuse one that does (data parallelism is not ported yet).
+package's. ``reduce_dict`` and ``synchronize_between_processes`` reduce
+over the processes of the default ``torch.distributed`` group (the
+data-parallel ranks, ``parallel/train.py``), and are the identity in one
+process.
 """
 
 from __future__ import annotations
@@ -19,19 +19,21 @@ import time
 from collections import defaultdict, deque
 
 
-def _world_size() -> int:
-    """Processes in the default ``torch.distributed`` group; 1 without
-    one. More than one is refused: the port runs one process."""
+def _all_reduce_sum(values: list[float]) -> list[float] | None:
+    """The sums of ``values`` over the processes of the default
+    ``torch.distributed`` group, in float64; None without a group of more
+    than one process."""
+    import torch
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()):
-        return 1
-    n = dist.get_world_size()
-    if n > 1:
-        raise NotImplementedError(
-            f"{n} processes: reducing metrics across processes waits for "
-            "the port's data parallelism")
-    return n
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else "cpu")
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t)
+    return t.tolist()
 
 
 class SmoothedValue:
@@ -50,8 +52,11 @@ class SmoothedValue:
         self.total += float(value) * n
 
     def synchronize_between_processes(self):
-        """Sum (count, total) across processes: a no-op in one process."""
-        _world_size()
+        """Sum (count, total) over the processes; the window stays local.
+        A no-op in one process."""
+        ct = _all_reduce_sum([float(self.count), self.total])
+        if ct is not None:
+            self.count, self.total = int(ct[0]), float(ct[1])
 
     @property
     def median(self):
@@ -76,10 +81,17 @@ class SmoothedValue:
 
 
 def reduce_dict(d: dict, average: bool = True) -> dict:
-    """Reduce a dict of scalars across processes: in one process, the dict
-    itself (a copy)."""
-    _world_size()
-    return dict(d)
+    """A dict of scalars summed (``average``: averaged) over the processes;
+    the keys must be the same in every process. In one process, a copy."""
+    import torch.distributed as dist
+
+    keys = sorted(d)
+    summed = _all_reduce_sum([float(d[k]) for k in keys])
+    if summed is None:
+        return dict(d)
+    if average:
+        summed = [v / dist.get_world_size() for v in summed]
+    return dict(zip(keys, summed))
 
 
 class MetricLogger:

@@ -137,6 +137,31 @@ failing if one took the numpy path (the benches, whose ``bench_train``
 also times the numpy path on purpose, must take the native one too); and
 ``bench_train``'s host assembly and epoch stepping on both host paths.
 
+The twelfth slice (the parallel paths on ``torch.distributed``) adds,
+after the resume phase,
+  parallel -- two ``gloo`` ranks sharing the one card (function and
+                memory, not scaling): the voxel-sharded decoder on the
+                smoke scene against the one-process ``forward_mask``
+                (JAX's 2e-3 band; labels equal where the top two logits
+                part by more), each timed; ``eval_multi_obj --sp 2`` and
+                ``--sp 2 --sp_backbone`` (``main(args)`` inside the ranks'
+                group) at 3 clicks an object against the one-process device
+                rollout (IoUs within 1e-4; one distance launch per round on
+                each rank; 8 k3 + 1 stem from the one-process backbone, none
+                from the sharded one; each halo exchange's rows and bytes);
+                one dp step on two identical groups against the one-process
+                step, then ``main --num_dp 2`` for one epoch of 4 training
+                reference scenes (65,536 rows a replica), each rank's
+                launches equal to the one-process ``--device_rollout``
+                rollout and step on its batch; in this process,
+                ``--scene_parallel 2`` (one device on one card) against the
+                serial host loop, rows equal, ``--sp 2`` with no group
+                refused on nccl in one ``error:`` line, and what NCCL itself
+                says to two ranks on one card (reported; the probe must
+                reach NCCL).
+The kernels line's ``launches_by_path`` gains ``sp_eval``,
+``sp_backbone_eval`` and ``dp_train`` (summed over the two ranks).
+
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -2758,6 +2783,491 @@ def phase_benches(torch):
     return launches, lines
 
 
+
+# ---------------------------------------------------------------------------
+# The parallel paths: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# two ranks share the one card: what they measure is function and memory,
+# not scaling
+PARALLEL_RANKS = 2
+# the SP rollouts at 3 clicks an object (cut from the main path's 5, to
+# hold the time): 16 rounds after round 0
+SP_CLICKS = 3
+# JAX's band for the sharded decoder against the one-process one
+# (tests/test_parallel.py), rtol and atol
+SP_BAND = 2e-3
+# data parallelism: 4 scenes of the training reference's kind, 2 a rank,
+# so that each replica's batch pads to the 65,536-row level 0 (not the
+# 524,288-row batch: two replicas of ~37 GiB would not fit on one card
+# beside gloo's host staging); one step
+DP_SCENES = dict(TRAIN_REF_SCENES, num_scenes=4)
+DP_BATCH = 2
+# the one-process step against the dp step on two identical groups:
+# tests/test_dp_train.py's bounds
+DP_LOSS_TOL = 1e-5
+DP_PARAM_TOL = dict(atol=5e-6, rtol=1e-4)
+
+
+def _eval_argv(scans, val_list, out_dir, *extra):
+    return (["--scan_folder", scans, "--val_list", val_list, "--seed", "0",
+             "--max_num_clicks", str(SP_CLICKS), "--output_dir", out_dir,
+             "--device", DEVICE] + REFERENCE_BLOCK + list(extra))
+
+
+def _csv_rows(out_dir):
+    with open(os.path.join(out_dir, "val_results_multi.csv")) as f:
+        return [r.split(" ") for r in f.read().strip().split("\n") if r]
+
+
+def _sp_decoder_rank(torch, mesh, scans, val_list):
+    """The sharded decoder against the one-process ``forward_mask`` on this
+    rank's rows of the smoke scene: the largest difference in units of the
+    band, and the labels equal where the one-process top two logits differ
+    by more than the band; the one-process pass timed alone on the card,
+    the sharded pass on both ranks at once."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.parallel.mesh import barrier, psum
+    from agile3d_torch.parallel.sp import make_forward_mask_sp
+    from agile3d_torch.sparse.grid import to_device
+
+    cfg = Config()
+    model = init_agile3d(cfg.model, seed=0, device=DEVICE)
+    batch = collate_scenes([InterMultiObjDataset(
+        scans, val_list, cfg.model.voxel_size)[0]], cfg.buckets)
+    dev = mesh.device
+    with torch.no_grad():
+        scene = model.forward_backbone(
+            to_device(batch.pyramid, dev),
+            *(torch.from_numpy(a).to(dev)
+              for a in (batch.feats, batch.raw, batch.sample_idx)))
+    n_valid = int((batch.sample_idx[0] >= 0).sum())
+    num_obj = int(batch.num_obj[0])
+    host_clicks = _clicks(torch, batch.labels[0, :n_valid], num_obj)
+    clicks = type(host_clicks)(*(t.to(dev) for t in host_clicks))
+    no = torch.tensor([num_obj], dtype=torch.int32, device=dev)
+    axis = mesh["sp"]
+    fm_sp, shard = make_forward_mask_sp(mesh, cfg.model)
+    scene_l = shard(scene)
+    one = lambda: model.forward_mask(scene, clicks, no)
+    sharded = lambda: fm_sp(model, scene_l, clicks, no)
+    with torch.no_grad():
+        ref = one()
+        got = sharded()
+        one_ms = one_wall = None
+        barrier(axis)
+        if axis.index == 0:   # alone on the card
+            one_ms = time_ms(torch, one, reps=5)
+            one_wall = wall_ms(torch, one, reps=5)
+        barrier(axis)
+        sp_ms = time_ms(torch, sharded, reps=5)
+        sp_wall = wall_ms(torch, sharded, reps=5)
+    nl = scene_l.mask_feat.shape[1]
+    lo = axis.index * nl
+    cols = slice(0, num_obj + 1)
+    valid = scene_l.vox_valid[0]
+    want = ref["all_masks"][:, 0, lo:lo + nl, cols][:, valid]
+    have = got["all_masks"][:, 0, :, cols][:, valid]
+    diff = (have - want).abs()
+    excess = float((diff / (SP_BAND + SP_BAND * want.abs())).max())
+    top2 = want[-1].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SP_BAND + SP_BAND * top2[:, 0].abs()
+    equal = have[-1].argmax(-1) == want[-1].argmax(-1)
+    counts = psum(torch.tensor([float(equal.sum()), float(equal.numel()),
+                                float((equal | ~clear).sum()),
+                                float(clear.numel())], device=dev), axis)
+    return dict(rows_per_rank=nl, chunk=ref["attn_chunk"],
+                max_abs_diff=float(diff.max()), band_ratio=excess,
+                labels_equal_share=float(counts[0] / counts[1]),
+                labels_equal_where_clear=int(counts[2]) == int(counts[3]),
+                one_process_ms=one_ms, one_process_wall_ms=one_wall,
+                sp_ms=sp_ms, sp_wall_ms=sp_wall)
+
+
+def _sp_eval_rank(torch, scans, val_list, out_dir, sp_backbone: bool):
+    """``python -m agile3d_torch.eval_multi_obj --sp 2 [--sp_backbone]``
+    (``main(args)``, in this rank of the group), launches counted around it;
+    under ``--sp_backbone`` each halo exchange's rows and width recorded."""
+    from agile3d_torch import eval_multi_obj
+    from agile3d_torch.parallel import sp_backbone as psb
+
+    halo = {}
+    orig = psb._halo_exchange
+
+    def exchange(x_local, halo_src, axis):
+        key = (x_local.shape[0], halo_src.shape[0], x_local.shape[1])
+        halo[key] = halo.get(key, 0) + 1
+        return orig(x_local, halo_src, axis)
+
+    extra = ["--sp", str(PARALLEL_RANKS)] + (["--sp_backbone"]
+                                             if sp_backbone else [])
+    args = eval_multi_obj.get_args_parser().parse_args(
+        _eval_argv(scans, val_list, out_dir, *extra))
+    psb._halo_exchange = exchange
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        zero_launches()
+        results = eval_multi_obj.main(args, log=lambda m: None)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        psb._halo_exchange = orig
+    return dict(launches=launches, wall_s=time.time() - t0, results=results,
+                halo=[dict(rows=r, halo_rows=h, channels=c, calls=n,
+                           bytes_per_rank=4 * h * c)
+                      for (r, h, c), n in sorted(halo.items())])
+
+
+def _dp_rank(torch, dp_scans, dp_list, out_dir):
+    """Data parallelism in this rank: one step on two identical groups
+    against the one-process step on that group; then ``python -m
+    agile3d_torch.main --num_dp 2`` for one epoch (``main(args)``), its
+    rollout's and step's launches counted, against the one-process
+    ``--device_rollout`` rollout and step on this rank's batch."""
+    from agile3d_torch import main as pmain
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset
+    from agile3d_torch.engine.device_train import train_rollout
+    from agile3d_torch.engine.eval import InteractiveEngine
+    from agile3d_torch.engine.train import (
+        device_click_state,
+        make_optimizer,
+        make_train_step,
+        prepare_batch,
+    )
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.parallel import train as ptrain
+    from agile3d_torch.parallel.mesh import make_mesh, pmax
+    from agile3d_torch.sparse.grid import to_device
+
+    cfg = Config()
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    ds = InterMultiObjDataset(dp_scans, dp_list, cfg.model.voxel_size)
+    batch, labels, num_obj, _ = prepare_batch(ds, [0, 1], cfg, 0)
+    host_clicks = _train_clicks(torch, labels, num_obj)
+    clicks = type(host_clicks)(*(t.to(dev) for t in host_clicks))
+    inputs = ((to_device(batch.pyramid, dev),
+               *(torch.from_numpy(a).to(dev)
+                 for a in (batch.feats, batch.raw, batch.sample_idx))),
+              clicks, torch.from_numpy(labels).to(dev),
+              torch.from_numpy(num_obj).to(dev))
+    model0 = init_agile3d(cfg.model, seed=0, device="cpu")
+    mesh = make_mesh(n_dp=PARALLEL_RANKS, n_sp=1, device=dev)
+
+    def step_on(make):
+        model = copy.deepcopy(model0).to(dev)
+        opt, _ = make_optimizer(model, cfg, 1)
+        out = make(model, opt)(*inputs)
+        return out, {k: v.detach() for k, v in model.state_dict().items()}
+
+    one, one_state = step_on(lambda m, o: make_train_step(cfg, m, o))
+    zero_launches()
+    dp, dp_state = step_on(lambda m, o: lambda *a: ptrain.make_dp_train_step(
+        cfg, m, o, mesh)(*a, np.ones(PARALLEL_RANKS, np.float32)))
+    step_launches = read_launches()
+    worst = max(float(((dp_state[k].float() - v.float()).abs()
+                       - DP_PARAM_TOL["rtol"] * v.float().abs()).max())
+                for k, v in one_state.items() if v.is_floating_point())
+    identical = dict(
+        loss_diff=abs(float(dp["loss"]) - float(one["loss"])),
+        miou_diff=abs(float(dp["miou"]) - float(one["miou"])),
+        gnorm=(float(dp["gnorm"]), float(one["gnorm"])),
+        param_excess=worst, launches=step_launches)
+    del one_state, dp_state
+
+    # the entry point: the rollout's and the step's launches on this rank
+    seen = {"steps": []}
+    orig_rollout, orig_step = ptrain.make_dp_rollout, pmain.make_dp_train_step
+
+    def make_dp_rollout(cfg_, mesh_):
+        inner = orig_rollout(cfg_, mesh_)
+
+        def rollout(engine, batch_, labels_, num_obj_, num_iters, seed):
+            before = read_launches()
+            out = inner(engine, batch_, labels_, num_obj_, num_iters, seed)
+            seen.update(engine=engine, batch=batch_, labels=labels_,
+                        num_obj=num_obj_, num_iters=num_iters,
+                        rollout_launches={k: v - before[k] for k, v in
+                                          read_launches().items()})
+            return out
+        return rollout
+
+    def make_dp_train_step(cfg_, model, opt, mesh_):
+        inner = orig_step(cfg_, model, opt, mesh_)
+
+        def step(*args):
+            before = read_launches()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = inner(*args)
+            end.record()
+            end.synchronize()
+            seen["steps"].append(dict(
+                ms=start.elapsed_time(end), loss=float(out["loss"]),
+                launches={k: v - before[k] for k, v in
+                          read_launches().items()}))
+            return out
+        return step
+
+    args = pmain.get_args_parser().parse_args([
+        "--scan_folder", dp_scans, "--train_list", dp_list, "--val_list",
+        dp_list, "--epochs", "1", "--val_epochs", "2", "--batch_size",
+        str(DP_BATCH), "--seed", "0", "--output_dir", out_dir, "--device",
+        DEVICE, "--num_dp", str(PARALLEL_RANKS)])
+    ptrain.make_dp_rollout = make_dp_rollout
+    pmain.make_dp_train_step = make_dp_train_step
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        zero_launches()
+        history = pmain.main(args, log=lambda m: None)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        ptrain.make_dp_rollout = orig_rollout
+        pmain.make_dp_train_step = orig_step
+    wall_s = time.time() - t0
+
+    # the one-process --device_rollout rollout and step on this rank's batch
+    engine = seen["engine"]
+    zero_launches()
+    with torch.no_grad():
+        scene = engine.run_backbone(seen["batch"], training=True)
+        max_label = cfg.model.max_fg_objects
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cs, counts = train_rollout(
+            engine.model, scene, seen["labels"], seen["num_obj"],
+            seen["num_iters"], gen,
+            engine._click_bucket((seen["num_iters"] + 1) * max_label),
+            max_label)
+    del scene
+    one_rollout = read_launches()
+    opt, _ = make_optimizer(engine.model, cfg, 1)
+    zero_launches()
+    make_train_step(cfg, engine.model, opt)(
+        engine.device_batch(seen["batch"]),
+        device_click_state(cs, counts, cfg.model.max_clicks), seen["labels"],
+        seen["num_obj"])
+    torch.cuda.synchronize()
+    one_step = read_launches()
+    same_loss = float(pmax(torch.tensor(seen["steps"][0]["loss"]),
+                           mesh["dp"])) == seen["steps"][0]["loss"]
+    return dict(identical=identical, launches=launches, wall_s=wall_s,
+                steps=seen["steps"], num_iters=seen["num_iters"],
+                rollout_launches=seen["rollout_launches"],
+                one_rollout_launches=one_rollout,
+                one_step_launches=one_step, same_loss=same_loss,
+                epoch_loss=(history["epochs"][0]["loss"] if history
+                            else None),
+                rows=seen["batch"].pyramid.levels[0].grid.shape[0])
+
+
+def _parallel_rank(scans, val_list, dp_scans, dp_list, tmp):
+    """One rank of the parallel phase's gloo group (both on the one
+    card)."""
+    import torch
+    import torch.distributed as dist
+
+    from agile3d_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    rank = dist.get_rank()
+    t0 = time.time()
+    mesh = make_mesh(n_dp=1, n_sp=PARALLEL_RANKS, device=DEVICE)
+    out = {"decoder": _sp_decoder_rank(torch, mesh, scans, val_list)}
+    torch.cuda.empty_cache()
+    for key, bb in (("sp_eval", False), ("sp_backbone_eval", True)):
+        out[key] = _sp_eval_rank(torch, scans, val_list,
+                                 os.path.join(tmp, f"par_{key}"), bb)
+        if rank == 0:
+            out[key]["rows"] = _csv_rows(os.path.join(tmp, f"par_{key}"))
+        torch.cuda.empty_cache()
+    out["dp"] = _dp_rank(torch, dp_scans, dp_list,
+                         os.path.join(tmp, "par_dp"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def _nccl_on_one_card(tmp) -> dict:
+    """What NCCL does with two ranks on one card, in a child process group
+    that is killed whole after 120 s: the port refuses that layout before
+    starting a process (``parallel/mesh.py::check_layout``); this asks
+    NCCL itself, bypassing the check. The ranks' code is a script file,
+    so that the spawn start method can import it."""
+    script = os.path.join(tmp, "nccl_two_ranks.py")
+    with open(script, "w") as f:
+        f.write(
+            "import sys, torch, torch.distributed as dist\n"
+            "import torch.multiprocessing as mp\n"
+            "def rank(r, path):\n"
+            "    torch.cuda.set_device(0)\n"
+            "    dist.init_process_group('nccl', store=dist.FileStore(path, 2),"
+            " rank=r, world_size=2)\n"
+            "    t = torch.ones(1, device='cuda')\n"
+            "    dist.all_reduce(t)\n"
+            "    torch.cuda.synchronize()\n"
+            "    print('rank', r, 'all_reduce', float(t), flush=True)\n"
+            "    dist.destroy_process_group()\n"
+            "if __name__ == '__main__':\n"
+            "    mp.start_processes(rank, args=(sys.argv[1],), nprocs=2,"
+            " start_method='spawn')\n")
+    proc = subprocess.Popen(
+        [sys.executable, script, os.path.join(tmp, "nccl_store")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True, env=dict(os.environ, NCCL_DEBUG="WARN"))
+    try:
+        out, _ = proc.communicate(timeout=120)
+        status = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        status = "killed after 120 s"
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    # NCCL's refusal, or a rank's line after its all-reduce
+    said = [ln for ln in lines
+            if "Duplicate GPU" in ln or ln.startswith("rank ")]
+    return {"exit": status, "said": said[:1], "reached_nccl": bool(said)}
+
+
+def phase_parallel(torch, scans, val_list, tmp):
+    """The parallel paths on the one card, as two ``gloo`` ranks sharing it
+    (function and memory, not scaling): the voxel-sharded decoder at the
+    smoke scene against the one-process one; ``eval_multi_obj --sp 2`` and
+    ``--sp 2 --sp_backbone`` against the one-process device rollout at
+    SP_CLICKS clicks an object; ``main --num_dp 2`` (one identical-groups
+    step against the one-process step first); in this process,
+    ``--scene_parallel 2`` (one card: one device) against the serial host
+    loop, and ``--sp 2`` without a group refused on nccl in one line."""
+    from agile3d_torch import eval_multi_obj
+    from agile3d_torch.cli import run
+    from agile3d_torch.data.synthetic import write_benchmark
+    from agile3d_torch.parallel.mesh import spawn
+
+    t0 = time.time()
+    quiet = lambda m: None
+    parse = eval_multi_obj.get_args_parser().parse_args
+    one = {}
+    for name, extra in (("device", []), ("host", ["--host_rollout"]),
+                        ("scene_parallel", ["--scene_parallel",
+                                            str(PARALLEL_RANKS)])):
+        out = os.path.join(tmp, f"par_one_{name}")
+        zero_launches()
+        eval_multi_obj.main(parse(_eval_argv(scans, val_list, out, *extra)),
+                            log=quiet)
+        torch.cuda.synchronize()
+        one[name] = dict(rows=_csv_rows(out), launches=read_launches())
+
+    err = io.StringIO()
+    code = None
+    try:
+        with contextlib.redirect_stderr(err):
+            run(eval_multi_obj.get_args_parser(), eval_multi_obj.main,
+                _eval_argv(scans, val_list, os.path.join(tmp, "par_refused"),
+                           "--sp", str(PARALLEL_RANKS)))
+    except SystemExit as e:
+        code = e.code
+    refusal = err.getvalue().strip().splitlines()
+
+    dp_scans, dp_list = write_benchmark(os.path.join(tmp, "dp"), **DP_SCENES)
+    t1 = time.time()
+    ranks = spawn(_parallel_rank, PARALLEL_RANKS, scans, val_list, dp_scans,
+                  dp_list, tmp, backend="gloo", device=DEVICE)
+    ranks_s = time.time() - t1
+    nccl = _nccl_on_one_card(tmp)
+
+    dec = [r["decoder"] for r in ranks]
+    want = one["device"]["rows"]
+
+    def iou_diff(rows):
+        check(len(rows) == len(want)
+              and [r[:4] for r in rows] == [r[:4] for r in want],
+              "a sharded rollout wrote other rows than the one-process one")
+        return max(abs(float(a[4]) - float(b[4])) for a, b in zip(rows, want))
+
+    rounds = len(want) - 1
+    sp = {k: dict(iou_max_diff=iou_diff(ranks[0][k]["rows"]),
+                  wall_s=[r[k]["wall_s"] for r in ranks],
+                  launches=[r[k]["launches"] for r in ranks])
+          for k in ("sp_eval", "sp_backbone_eval")}
+    halo = ranks[0]["sp_backbone_eval"]["halo"]
+    dp = [r["dp"] for r in ranks]
+    emit({"phase": "parallel", "ranks": PARALLEL_RANKS, "backend": "gloo",
+          "note": "two ranks share one card: function and memory, not "
+                  "scaling",
+          "decoder": dec, "sp": sp, "rounds": rounds,
+          "halo_exchanges": halo,
+          "dp": [{k: d[k] for k in ("identical", "launches", "wall_s",
+                                    "steps", "num_iters", "rollout_launches",
+                                    "one_rollout_launches",
+                                    "one_step_launches", "epoch_loss",
+                                    "rows")} for d in dp],
+          "scene_parallel_rows_equal": one["scene_parallel"]["rows"]
+          == one["host"]["rows"],
+          "refusal": {"exit_code": code, "stderr": refusal},
+          "nccl_two_ranks_one_card": nccl,
+          "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+          "rank_seconds": [r["seconds"] for r in ranks],
+          "ranks_wall_s": ranks_s, "seconds": time.time() - t0})
+
+    for d in dec:
+        check(d["band_ratio"] <= 1.0 and d["labels_equal_where_clear"],
+              f"sharded decoder off the one-process one: {d}")
+    for k, v in sp.items():
+        check(v["iou_max_diff"] <= 1e-4, f"{k}: IoU differs by "
+                                         f"{v['iou_max_diff']}")
+        for lc in v["launches"]:
+            check(lc["boundary_distances_all"] == rounds,
+                  f"{k}: distance launches {lc} != {rounds} rounds")
+            check(lc["banded_window_conv"] == lc["smem_row_gather"] == 0,
+                  f"{k}: a probe kernel ran: {lc}")
+            if k == "sp_eval":
+                check(lc["banded_conv"] == 8 and lc["banded_stem"] == 1,
+                      f"{k}: the one-process backbone's launches {lc}")
+            else:
+                check(lc["banded_conv"] == 0 and lc["banded_stem"] == 0,
+                      f"{k}: the sharded backbone launched a banded kernel "
+                      f"{lc}")
+    check(len(halo) > 0 and all(h["halo_rows"] > 0 for h in halo),
+          f"no halo exchange recorded: {halo}")
+    for d in dp:
+        i = d["identical"]
+        check(i["loss_diff"] <= DP_LOSS_TOL and i["miou_diff"] <= DP_LOSS_TOL
+              and i["param_excess"] <= DP_PARAM_TOL["atol"],
+              f"dp step on identical groups vs one process: {i}")
+        check(d["same_loss"] and len(d["steps"]) == 1,
+              f"dp epoch: {d['steps']}")
+        per = {k: d["rollout_launches"][k] + d["steps"][0]["launches"][k]
+               for k in d["launches"]}
+        one_path = {k: d["one_rollout_launches"][k] + d["one_step_launches"][k]
+                    for k in d["launches"]}
+        check(per == one_path == d["launches"],
+              f"dp launches {per} (epoch {d['launches']}) != the one-process "
+              f"device-rollout step's {one_path}")
+        check(d["launches"]["boundary_distances_all"] == d["num_iters"] + 1
+              and d["launches"]["banded_conv"] > 0
+              and d["launches"]["banded_conv_dw"] > 0,
+              f"dp launches {d['launches']}")
+    check(one["scene_parallel"]["rows"] == one["host"]["rows"],
+          "--scene_parallel rows differ from the serial host loop's")
+    check(nccl["reached_nccl"],
+          f"the two-ranks-on-one-card probe did not reach NCCL: {nccl}")
+    check(code == 1 and len(refusal) == 1 and refusal[0].startswith(
+        f"error: {PARALLEL_RANKS} ranks on nccl need"),
+          f"--sp {PARALLEL_RANKS} on one card without a group: exit {code}, "
+          f"{refusal}")
+    sum_ranks = lambda lcs: {k: sum(lc[k] for lc in lcs) for k in lcs[0]}
+    return {"sp_eval": sum_ranks(sp["sp_eval"]["launches"]),
+            "sp_backbone_eval": sum_ranks(sp["sp_backbone_eval"]["launches"]),
+            "dp_train": sum_ranks([d["launches"] for d in dp])}
+
+
 def kernel_meta():
     """Per kernel of the port: (source, the TPU kernel or XLA fusion it
     replaces, the rows' roles that its times sum, the unit of those
@@ -2893,6 +3403,9 @@ def main():
                                                       train_list, tmp)
         with native_host_prep("resume"):
             resume_launches = phase_resume(torch, tmp)
+        torch.cuda.empty_cache()
+        with native_host_prep("parallel"):
+            parallel_launches = phase_parallel(torch, scans, val_list, tmp)
         # bench_train also assembles batches on the numpy path, for its
         # numpy_host times
         with native_host_prep("benches", numpy_too=True):
@@ -2905,7 +3418,7 @@ def main():
              "variants": variant_launches,
              "train": host_train, "train_device_rollout": device_train,
              "bf16_backbone": bf16_launches, "dropout": dropout_launches,
-             "resume": resume_launches,
+             "resume": resume_launches, **parallel_launches,
              "bench": bench_launches["bench"],
              "bench_train": bench_launches["bench_train"]}
     kernels = []

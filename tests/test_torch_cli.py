@@ -1,7 +1,7 @@
-"""The port's four CLIs against the JAX package's: the same flags (less the
-four that wait for the parallel paths; the three of checkpoints and resume
-were the other three of the seven until they were ported), the reference
-model block folded into the same config fields, and the same guards."""
+"""The port's four CLIs against the JAX package's: the same flags (the
+seven that once waited, the three of checkpoints and resume and the four
+of the parallel paths, are all ported), the reference model block folded
+into the same config fields, and the same guards."""
 
 import dataclasses
 import importlib
@@ -18,9 +18,8 @@ CLIS = {"eval_multi_obj": "agile3d_torch.eval_multi_obj",
         "eval_single_obj": "agile3d_torch.eval_single_obj",
         "run_ui": "agile3d_torch.run_ui",
         "main": "agile3d_torch.main"}
-WAITING = {"eval_multi_obj": {"--sp", "--sp_backbone", "--scene_parallel"},
-           "eval_single_obj": set(), "run_ui": set(),
-           "main": {"--num_dp"}}
+WAITING = {"eval_multi_obj": set(), "eval_single_obj": set(),
+           "run_ui": set(), "main": set()}
 REQUIRED = {"eval_multi_obj": ["--scan_folder", "s", "--val_list", "v"],
             "eval_single_obj": ["--scan_folder", "s", "--val_list", "v"],
             "run_ui": [], "main": []}
@@ -33,21 +32,55 @@ def _flags(parser) -> set:
 
 @pytest.mark.parametrize("name", sorted(CLIS))
 def test_flags_are_jax_flags_less_the_waiting_ones(name):
-    jax_flags = _flags(importlib.import_module(name).get_args_parser())
+    """Nothing waits any more: every flag of the JAX entry point is the
+    port's, the parallel ones with JAX's defaults."""
+    jax_parser = importlib.import_module(name).get_args_parser()
     port = importlib.import_module(CLIS[name]).get_args_parser()
-    assert jax_flags - _flags(port) == WAITING[name]
-    for flag in WAITING[name]:
-        assert flag in pcli.not_ported_epilog(name)
+    assert _flags(jax_parser) - _flags(port) == WAITING[name] == set()
+    assert not hasattr(pcli, "NOT_PORTED")
+    jdefaults = {a.dest: a.default for a in jax_parser._actions}
+    for a in port._actions:
+        if a.dest in ("num_dp", "sp", "sp_backbone", "scene_parallel"):
+            assert a.default == jdefaults[a.dest], a.dest
 
 
-def test_waiting_flags_are_the_seven():
-    # of the seven, checkpoints and resume (--resume, --start_epoch,
-    # --ckpt_epochs) are ported; the parallel paths' four wait
-    assert set().union(*WAITING.values()) == {
-        "--num_dp", "--sp", "--sp_backbone", "--scene_parallel"}
-    assert pcli.NOT_PORTED["main"] == ("--num_dp",)
-    assert {k: set(v) for k, v in pcli.NOT_PORTED.items()} == {
-        k: v for k, v in WAITING.items() if v}
+@pytest.mark.parametrize("flags,route", [
+    (["--sp", "2"], ("launch", 2)),
+    (["--sp", "2", "--sp_backbone"], ("launch", 2)),
+    (["--scene_parallel", "2", "--sp", "2"], ("scene_parallel", 2)),
+    (["--num_dp", "3"], ("launch", 3)),
+], ids=["sp", "sp_backbone", "scene_parallel", "num_dp"])
+def test_waiting_flags_are_the_seven(flags, route, monkeypatch):
+    """The four parallel flags (the last of the seven that once waited)
+    parse and reach the parallel code: ``--sp`` and ``--num_dp`` the rank
+    launcher with their rank count, ``--scene_parallel`` (which outranks
+    ``--sp``, as in JAX) the scene-parallel loop with as many workers."""
+    name = "main" if "--num_dp" in flags else "eval_multi_obj"
+    mod = importlib.import_module(CLIS[name])
+    args = mod.get_args_parser().parse_args(REQUIRED[name] + flags
+                                            + ["--device", "cpu"])
+    seen = []
+
+    def fake_launch(world, fn, *fn_args, device):
+        seen.append(("launch", world))
+        assert fn.__name__ == ("_train" if name == "main" else "_evaluate")
+        assert fn_args[0] is args and device == "cpu"
+
+    def fake_parallel(cfg, model, dataset, results_file, *, devices, **kw):
+        seen.append(("scene_parallel", len(devices)))
+        raise _Built
+
+    monkeypatch.setattr(mod, "launch", fake_launch)
+    if name == "eval_multi_obj":
+        monkeypatch.setattr(mod, "evaluate_dataset_parallel", fake_parallel)
+        monkeypatch.setattr(mod, "build_dataset", lambda *a, **k: [])
+    try:
+        mod.main(args, log=lambda m: None)
+    except _Built:
+        pass
+    assert seen == [route]
+    if "--sp_backbone" in flags:
+        assert args.sp_backbone
 
 
 def _shared_fields(port_obj, jax_obj) -> dict:

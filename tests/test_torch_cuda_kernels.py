@@ -34,6 +34,7 @@ from agile3d_torch.ops.banded_window import (
     window_mask,
     window_plan,
 )
+from agile3d_torch.engine.device_eval import error_clusters
 from agile3d_torch.ops.boundary_dist import (
     boundary_distances_all,
     boundary_distances_all_reference,
@@ -716,3 +717,34 @@ def test_boundary_distances_refuse_bad_inputs(card):
     with pytest.raises(ValueError):
         boundary_distances_all(coords, cluster, valid,
                                pairs=torch.zeros(1, device=card))
+
+
+@pytest.mark.parametrize("n_sp", [2, 4])
+def test_sharded_distance_call_is_the_one_process_rounds(card, n_sp):
+    """Each rank's call (query = the error rows of its own rows, on the
+    gathered columns) gives, on the kernel, the bits of the one-process
+    round on those rows (sorted rows, as ``build_pyramid`` gives them)."""
+    rng = np.random.default_rng(n_sp)
+    n = 8192
+    grid = np.stack(np.unravel_index(np.sort(rng.choice(40 ** 3, n,
+                                                        replace=False)),
+                                     (40, 40, 40)), 1)
+    coords = torch.from_numpy((grid * 0.05).astype(np.float32)).to(card)
+    labels = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(card)
+    pred = torch.where(torch.from_numpy(rng.random(n) < 0.3).to(card),
+                       torch.from_numpy(rng.integers(0, 4, n).astype(
+                           np.int32)).to(card), labels)
+    valid = torch.from_numpy(np.arange(n) < n - 300).to(card)
+    err, compact, d, _ = error_clusters(pred[None], labels[None],
+                                        coords[None], valid[None], 10)
+    cluster = torch.where(err, compact, -1).to(torch.int32)[0]
+    nl = n // n_sp
+    for r in range(n_sp):
+        own = torch.zeros(n, dtype=torch.bool, device=card)
+        own[r * nl:(r + 1) * nl] = True
+        got = boundary_distances_all(coords[None], cluster[None],
+                                     valid[None],
+                                     query=((cluster >= 0) & own)[None])
+        rows = slice(r * nl, (r + 1) * nl)
+        e = err[0, rows]
+        assert torch.equal(got[0, rows][e], d[0, rows][e])

@@ -89,3 +89,21 @@ def test_setup_wandb_follows_jax(tmp_path, monkeypatch):
     (keys / f"{getpass.getuser()}_wandb.key").write_text("k1\n")
     assert pmisc.setup_wandb() is True
     assert pmisc.os.environ["WANDB_API_KEY"] == "k1"
+
+
+def test_reductions_over_a_two_rank_group():
+    """In a group of two processes (the data-parallel ranks), the meters'
+    (count, total) and ``reduce_dict``'s values are summed over the ranks
+    (averaged by ``reduce_dict`` by default), the same on both, as the JAX
+    package's ``_all_reduce_sum`` sums them over its processes."""
+    from agile3d_torch.parallel.mesh import spawn
+    from tests import torch_parallel_ranks as ranks
+
+    got = spawn(ranks.misc_reduce, 2, device="cpu")
+    assert got[0] == got[1]
+    g = got[0]
+    assert (g["count"], g["total"]) == (5, 0 + 1 + 10 + 11 + 12)
+    assert g["global_avg"] == 34 / 5
+    assert g["reduced"] == {"a": 1.0, "b": 1.5}
+    assert list(g["reduced"]) == ["a", "b"]
+    assert g["summed"] == {"b": 3.0}

@@ -101,3 +101,36 @@ def test_entry_point_prints_no_traceback(small_scene, tmp_path):
     assert "Traceback" not in proc.stderr, proc.stderr[-2000:]
     assert proc.stderr.strip().splitlines()[-1].startswith(
         "error: scene pads to"), proc.stderr[-2000:]
+
+
+def test_sp_backbone_path_skips_the_guard(small_scene, monkeypatch):
+    """The guard holds one card's memory against the whole scene; the
+    voxel-sharded backbone exists for scenes over it, so its path skips the
+    guard (as the JAX package's ``run_backbone`` does) while the one-process
+    backbone refuses the same scene."""
+    import random
+
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
+    from agile3d_torch.engine.device_eval import evaluate_scene_device
+    from agile3d_torch.engine.eval import InteractiveEngine
+    from agile3d_torch.models.agile3d import init_agile3d
+    from agile3d_torch.parallel.mesh import spawn
+    from agile3d_torch.utils.ckpt import export_reference_state_dict
+    from tests import torch_parallel_ranks as ranks
+    from tests.test_torch_parallel_rollout import SMALL
+
+    monkeypatch.setenv("AGILE3D_HBM_GIB", "0.01")   # the ranks inherit it
+    cfg = Config(model=SMALL)
+    scans, val_list = small_scene
+    batch = collate_scenes([InterMultiObjDataset(scans, val_list, 0.05)[0]],
+                           cfg.buckets)
+    sd = export_reference_state_dict(init_agile3d(SMALL, seed=0,
+                                                  device="cpu"))
+    engine = InteractiveEngine(cfg, ranks.model_from(SMALL, sd), "cpu")
+    with pytest.raises(SceneTooLargeError):
+        evaluate_scene_device(engine, batch, instance_id=0,
+                              rng=random.Random(0), max_num_clicks=1)
+    rows = spawn(ranks.sp_rollout_cases, 2,
+                 [(cfg, sd, batch, 0, 1, True, False)], device="cpu")
+    assert rows[0] == rows[1] and len(rows[0][0]) == 2
