@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import json
 import os
 import random
 import time
@@ -75,6 +76,7 @@ from agile3d_torch.parallel.mesh import barrier, launch, make_mesh, rank_device
 from agile3d_torch.parallel.train import dp_train_one_epoch, make_dp_train_step
 from agile3d_torch.utils.ckpt import load_training_checkpoint, save_checkpoint
 from agile3d_torch.utils.misc import MetricLogger, setup_wandb
+from agile3d_torch.utils.profiling import kernel_launches
 
 
 def get_args_parser():
@@ -220,6 +222,9 @@ def _train(args, log) -> dict | None:
     log("Start training")
     start = time.time()
     for epoch in range(args.start_epoch, cfg.train.epochs):
+        # the rate the epoch's first step takes (a drop lands at a step
+        # count, so the rate can change only between epochs)
+        log(f"epoch {epoch} lr {optimizer.lr(optimizer.count):.6g}")
         if num_dp > 1:
             stats = dp_train_one_epoch(cfg, mesh, engine, train_step,
                                        dataset_train, epoch, np_rng=np_rng,
@@ -253,10 +258,13 @@ def _train(args, log) -> dict | None:
         if (epoch + 1) % cfg.train.val_epochs == 0:
             csv = os.path.join(val_dir, f"val_results_epoch_{epoch}.csv")
             val_meter = MetricLogger()
-            evaluate_dataset(engine, dataset_val, csv,
+            # written under another name and renamed when whole, so that a
+            # run cut mid-validation leaves no partial CSV
+            evaluate_dataset(engine, dataset_val, f"{csv}.tmp",
                              max_num_clicks=cfg.train.max_num_clicks,
                              seed=seed, log=log, device_rollout=False,
                              loss_meter=val_meter)
+            os.replace(f"{csv}.tmp", csv)
             res = EvaluatorMO(args.val_list, csv).eval_results()
             history["val"][epoch] = res
             history["val_losses"][epoch] = {
@@ -266,6 +274,10 @@ def _train(args, log) -> dict | None:
                        for k, v in res.items()})
             wandb.log({f"val/{k}_epoch": v
                        for k, v in history["val_losses"][epoch].items()})
+        # this process's steps and kernel launches so far (the launches
+        # are rank 0's)
+        log(f"epoch {epoch} done: steps {optimizer.count} kernel launches "
+            f"{json.dumps(kernel_launches(), sort_keys=True)}")
         barrier()
     log(f"Training time "
         f"{datetime.timedelta(seconds=int(time.time() - start))}")

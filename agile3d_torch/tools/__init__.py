@@ -1,14 +1,21 @@
-"""The port's probes: counterparts of the TPU probes in the repository's
-``tools/`` that reach a Pallas kernel, each timing its hand-written CUDA
-kernel beside the plain version and a library call.
+"""The port's counterparts of the repository's ``tools/``: the TPU probes
+that reach a Pallas kernel, each timing its hand-written CUDA kernel
+beside the plain version and a library call, and the tools that drive the
+package at scale (the training regime and the longer evidence run, a
+KITTI-360-size scene, the two eval rollouts side by side).
 
     python -m agile3d_torch.tools.probe_banded_kernel [--points N] [--device cuda|cpu]
     python -m agile3d_torch.tools.probe_smem_gather [--points N] [--device cuda|cpu]
+    python -m agile3d_torch.tools.train_regime [WORKDIR] [--epochs 110] ...
+    python -m agile3d_torch.tools.train_evidence [WORKDIR] [EPOCHS]
+    python -m agile3d_torch.tools.stress_kitti [--points 1200000] ...
+    python -m agile3d_torch.tools.compare_rollout_paths [--out DIR] ...
 
 They run on the card unless ``--device cpu`` is given; on the CPU the
 wrappers compute the plain versions, and the times are the CPU's. This
-module holds what both share: the probe scene, timing and the card's
-least time for a piece of work.
+module holds what the probes and the stress tool share: the probe scene,
+timing, the card's name and power limit, and the card's least time for a
+piece of work.
 """
 
 from __future__ import annotations

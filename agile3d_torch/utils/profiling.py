@@ -1,6 +1,7 @@
 """Profiling and tracing hooks (the port's counterpart of the JAX
 package's ``utils/profiling.py``): a profiler trace around a block, named
-spans inside it, and the card's memory counters.
+spans inside it, the card's memory counters, and the launch counts of the
+port's kernels (``kernel_launches``).
 
     with trace("runs/trace"):
         with annotate("step"):
@@ -72,3 +73,25 @@ def annotate(name: str):
     """A named span on the profiler's timeline (a context manager; spans
     nest)."""
     return torch.profiler.record_function(name)
+
+
+def kernel_wrappers() -> dict:
+    """Every CUDA kernel wrapper of the port by name; each counts in
+    ``.launches`` where it launches its kernel (a CPU tensor's plain
+    version does not count)."""
+    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
+    from agile3d_torch.ops.banded_stem import banded_stem_conv
+    from agile3d_torch.ops.banded_window import banded_window_conv
+    from agile3d_torch.ops.boundary_dist import boundary_distances_all
+    from agile3d_torch.ops.row_gather import smem_row_gather
+
+    return {"banded_conv": banded_conv, "banded_conv_dw": banded_conv_dw,
+            "banded_stem": banded_stem_conv,
+            "banded_window_conv": banded_window_conv,
+            "smem_row_gather": smem_row_gather,
+            "boundary_distances_all": boundary_distances_all}
+
+
+def kernel_launches() -> dict:
+    """Each kernel's launches in this process so far, by wrapper name."""
+    return {k: w.launches for k, w in kernel_wrappers().items()}

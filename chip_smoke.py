@@ -162,6 +162,30 @@ after the resume phase,
 The kernels line's ``launches_by_path`` gains ``sp_eval``,
 ``sp_backbone_eval`` and ``dp_train`` (summed over the two ranks).
 
+The thirteenth slice (the repository's tools on the port) adds, after the
+parallel phase,
+  regime -- ``python -m agile3d_torch.tools.train_regime`` (in process;
+                ``main`` runs as its child) at a miniature: 10 train and 4
+                val scenes of 30,000 points, 4 epochs of 2 steps, the drop
+                at 3, validation every 2; a first piece cut (TERM, as
+                ``--max_seconds`` cuts) once epoch 1 and its validation
+                are done, then ``--resume``: both val curves, one from
+                each piece, none lost, the LR 1e-5 from the drop
+                on, every step taken, and the launches that the children
+                log (12 B1 and 4 B3 a step for each banded level, none in
+                the validations, 1-20 distance launches a step);
+  stress -- ``python -m agile3d_torch.tools.stress_kitti`` (in process) at
+                1.2M points over 22 m (786,432 rows): the chunked attention
+                engaged as the rule picks it, finite masks, the footprint
+                of one backbone and one decoder pass under the oversize
+                guard's estimate, 4 B1 a banded level and 1 B2 a pass;
+  rollout paths -- ``python -m agile3d_torch.tools.compare_rollout_paths``
+                (in process) on 2 scenes of 50,000 points at 3 clicks an
+                object: no trajectory diverges, the two ``EvaluatorMO``
+                dicts equal, one distance launch a device round and none
+                in the host loop.
+``launches_by_path`` gains ``regime``, ``stress`` and ``rollout_paths``.
+
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -297,29 +321,11 @@ def percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
-def kernel_wrappers():
-    """Every kernel wrapper of the port by name; each counts its launches
-    in ``.launches``."""
-    from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
-    from agile3d_torch.ops.banded_stem import banded_stem_conv
-    from agile3d_torch.ops.banded_window import banded_window_conv
-    from agile3d_torch.ops.boundary_dist import boundary_distances_all
-    from agile3d_torch.ops.row_gather import smem_row_gather
-
-    return {"banded_conv": banded_conv, "banded_conv_dw": banded_conv_dw,
-            "banded_stem": banded_stem_conv,
-            "banded_window_conv": banded_window_conv,
-            "smem_row_gather": smem_row_gather,
-            "boundary_distances_all": boundary_distances_all}
-
-
 def zero_launches() -> None:
+    from agile3d_torch.utils.profiling import kernel_wrappers
+
     for w in kernel_wrappers().values():
         w.launches = 0
-
-
-def read_launches() -> dict:
-    return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -1320,6 +1326,7 @@ def _single_run(torch, scans, objects, out_dir, host_rollout: bool):
     """One run of the single-object entry point, launches counted around
     it, the backbone and the device rounds (or the host loop's decoder
     calls) timed with CUDA events."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import eval_single_obj
     from agile3d_torch.engine import device_eval
     from agile3d_torch.engine import eval as peval
@@ -1338,7 +1345,7 @@ def _single_run(torch, scans, objects, out_dir, host_rollout: bool):
         zero_launches()
         results = eval_single_obj.main(args, log=logged.append)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
     wall_s = time.time() - t0
     csv = os.path.join(out_dir, "val_results_single.csv")
     rows = [r.split(" ") for r in open(csv).read().strip().split("\n") if r]
@@ -1471,6 +1478,7 @@ def phase_serve(torch, scans, tmp):
     CUDA-event decoder time, p50 / p90; launches: 0), and at bf16 one
     ``POST /click`` through the HTTP front end on localhost. The p50 is
     printed beside SERVE_LIMIT_MS, not held to it."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from http.server import ThreadingHTTPServer
 
     from agile3d_torch.config import Config, ModelConfig
@@ -1492,13 +1500,13 @@ def phase_serve(torch, scans, tmp):
             device=DEVICE, seed=0)
         torch.cuda.synchronize()
         start_s = time.time() - t0
-        start_launches = read_launches()
+        start_launches = kernel_launches()
         zero_launches()
         t0 = time.time()
         server.load_scene(0)
         torch.cuda.synchronize()
         load_s = time.time() - t0
-        load_launches = read_launches()
+        load_launches = kernel_launches()
 
         sets = _scripted_clicks(server.sample.labels, SERVE_CLICKS)
         decoder, wall, ious = [], [], []
@@ -1509,7 +1517,7 @@ def phase_serve(torch, scans, tmp):
                 pred_full, iou = server.get_next_click(click_idx, times)
                 wall.append(1e3 * (time.perf_counter() - t0))
                 ious.append(iou)
-        click_launches = read_launches()
+        click_launches = kernel_launches()
         decoder_ms = [a.elapsed_time(b) for a, b in decoder]
         row = {"scene_rows": server.scene.mask_feat.shape[1],
                "num_valid": server.n_valid, "points": len(pred_full),
@@ -1795,6 +1803,7 @@ def phase_bf16_backbone(torch, batch, train_run, train_compare, n_lv):
     labels of one ``forward_mask`` after it against the f32 backbone's;
     then one supervised step on the training reference batch with the
     kernels on, held against the CPU's f32 step."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch.config import Config
     from agile3d_torch.models.agile3d import Agile3D, init_agile3d
     from agile3d_torch.ops.banded_conv import banded_conv, banded_conv_dw
@@ -1815,7 +1824,7 @@ def phase_bf16_backbone(torch, batch, train_run, train_compare, n_lv):
         zero_launches()
         s16 = m16.forward_backbone(*inputs)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
         fpn = m16.backbone(inputs[0], inputs[1], None,
                            compute_dtype=torch.bfloat16)
         dtypes = [str(f.dtype).replace("torch.", "") for f in fpn]
@@ -1823,7 +1832,7 @@ def phase_bf16_backbone(torch, batch, train_run, train_compare, n_lv):
         m16.backbone.cfg = dataclasses.replace(kernels_on, banded_conv=False)
         zero_launches()
         s16_plain = m16.forward_backbone(*inputs)
-        plain_launches = read_launches()
+        plain_launches = kernel_launches()
         m16.backbone.cfg = kernels_on
         s32 = m32.forward_backbone(*inputs)
         p16 = m16.forward_mask(s16, clicks, num_obj)["pred_masks"].argmax(-1)
@@ -1923,6 +1932,7 @@ def phase_resume(torch, tmp):
     ``--epochs 2``: it starts at epoch 1, restores the weights, BatchNorm
     statistics and optimizer state bit for bit and runs one more epoch;
     launches per step as the routing rule gives them."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import main as pmain
     from agile3d_torch.config import Config
     from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
@@ -1963,7 +1973,7 @@ def phase_resume(torch, tmp):
         hist = pmain.main(args, log=lambda m: print(f"resume: {m}",
                                                     flush=True))
         torch.cuda.synchronize()
-        return hist, read_launches(), time.time() - t
+        return hist, kernel_launches(), time.time() - t
 
     first, launches1, wall1 = run("--epochs", "1")
     saved = torch.load(ckpt_path, map_location="cpu", weights_only=False)
@@ -2034,6 +2044,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     scenes at full width: one epoch of TRAIN_STEPS steps at batch 5 and one
     validation, with the kernels' launches counted per step and the
     rollout, supervised step and backbone timed with CUDA events."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import main as pmain
     from agile3d_torch.engine import train as ptrain
     from agile3d_torch.models.agile3d import Agile3D, init_agile3d
@@ -2184,7 +2195,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
                         if rate else None)
         end.record()
         end.synchronize()
-        lc = read_launches()
+        lc = kernel_launches()
         bf16_steps[key] = dict(
             attn_chunk=out["attn_chunk"],
             loss=float(out["loss"]), gnorm=float(out["gnorm"]),
@@ -2466,6 +2477,7 @@ def phase_variants(torch, batch, scans, val_list, tmp):
     kernels on and off, and ``Agile3D`` refusing it. B1 launches per
     forward must be what the routing rule predicts
     (``models/backbone.py::banded_convs``)."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch.config import Config, ModelConfig
     from agile3d_torch.data.datasets import InterMultiObjDataset
     from agile3d_torch.engine.eval import InteractiveEngine, evaluate_dataset
@@ -2502,7 +2514,7 @@ def phase_variants(torch, batch, scans, val_list, tmp):
         masks = model.forward_mask(scene, clicks, no)["pred_masks"][
             0, :n_valid, :num_obj + 1]
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
         fpn = model.backbone(pyr, feats)
         model.backbone.cfg = dataclasses.replace(bb_cfg, banded_conv=False)
         zero_launches()
@@ -2511,7 +2523,7 @@ def phase_variants(torch, batch, scans, val_list, tmp):
                                          clicks, no)["pred_masks"][
             0, :n_valid, :num_obj + 1]
         torch.cuda.synchronize()
-        plain_launches = read_launches()
+        plain_launches = kernel_launches()
         model.backbone.cfg = bb_cfg
     mask_err, mask_scale = _rel(masks, masks_plain)
     agree = float((masks.argmax(-1) == masks_plain.argmax(-1)).float().mean())
@@ -2534,7 +2546,7 @@ def phase_variants(torch, batch, scans, val_list, tmp):
                      csv, max_num_clicks=VARIANT_CLICKS, seed=0,
                      log=lambda m: None)
     torch.cuda.synchronize()
-    eval_launches = read_launches()
+    eval_launches = kernel_launches()
     rows = [r.split(" ") for r in open(csv).read().strip().split("\n") if r]
     ious = [float(r[4]) for r in rows]
     out[VARIANT_MODEL].update(eval_rows=len(rows), eval_final_iou=ious[-1],
@@ -2549,7 +2561,7 @@ def phase_variants(torch, batch, scans, val_list, tmp):
         zero_launches()
         fpn = net(pyr, feats)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
         net.cfg = dataclasses.replace(bcfg, banded_conv=False)
         fpn_plain = net(pyr, feats)
     err, scale = fpn_err(fpn, fpn_plain)
@@ -2604,6 +2616,7 @@ def phase_oversize(torch, scans, val_list, tmp):
     """``python -m agile3d_torch.eval_multi_obj`` (in process) with the
     memory budget pinned at 0.01 GiB (``AGILE3D_HBM_GIB``): it must exit
     non-zero with one ``error:`` line, before any kernel launch."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import eval_multi_obj
     from agile3d_torch.cli import run
 
@@ -2622,7 +2635,7 @@ def phase_oversize(torch, scans, val_list, tmp):
     finally:
         del os.environ["AGILE3D_HBM_GIB"]
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = kernel_launches()
     lines = err.getvalue().strip().splitlines()
     emit({"phase": "oversize", "exit_code": code, "stderr": lines,
           "launches": launches})
@@ -2727,6 +2740,7 @@ def phase_benches(torch):
     eval backbone forward; 16 k3 (8 forward, 8 dX) + 8 dW per supervised
     step (the training epoch's 24 k3 add the rollout's no-gradient
     backbone, which the bench's fixed click table skips)."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import bench, bench_train
 
     t0 = time.time()
@@ -2738,7 +2752,7 @@ def phase_benches(torch):
         with contextlib.redirect_stdout(buf):
             mod.main(mod.get_args_parser().parse_args(argv))
         torch.cuda.synchronize()
-        launches[name] = read_launches()
+        launches[name] = kernel_launches()
         lines[name] = _last_json(buf.getvalue())
         print(buf.getvalue(), end="", flush=True)
     b, t = lines["bench"], lines["bench_train"]
@@ -2890,6 +2904,7 @@ def _sp_eval_rank(torch, scans, val_list, out_dir, sp_backbone: bool):
     """``python -m agile3d_torch.eval_multi_obj --sp 2 [--sp_backbone]``
     (``main(args)``, in this rank of the group), launches counted around it;
     under ``--sp_backbone`` each halo exchange's rows and width recorded."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import eval_multi_obj
     from agile3d_torch.parallel import sp_backbone as psb
 
@@ -2912,7 +2927,7 @@ def _sp_eval_rank(torch, scans, val_list, out_dir, sp_backbone: bool):
         zero_launches()
         results = eval_multi_obj.main(args, log=lambda m: None)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
     finally:
         psb._halo_exchange = orig
     return dict(launches=launches, wall_s=time.time() - t0, results=results,
@@ -2927,6 +2942,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
     agile3d_torch.main --num_dp 2`` for one epoch (``main(args)``), its
     rollout's and step's launches counted, against the one-process
     ``--device_rollout`` rollout and step on this rank's batch."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import main as pmain
     from agile3d_torch.config import Config
     from agile3d_torch.data.datasets import InterMultiObjDataset
@@ -2967,7 +2983,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
     zero_launches()
     dp, dp_state = step_on(lambda m, o: lambda *a: ptrain.make_dp_train_step(
         cfg, m, o, mesh)(*a, np.ones(PARALLEL_RANKS, np.float32)))
-    step_launches = read_launches()
+    step_launches = kernel_launches()
     worst = max(float(((dp_state[k].float() - v.float()).abs()
                        - DP_PARAM_TOL["rtol"] * v.float().abs()).max())
                 for k, v in one_state.items() if v.is_floating_point())
@@ -2986,12 +3002,12 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
         inner = orig_rollout(cfg_, mesh_)
 
         def rollout(engine, batch_, labels_, num_obj_, num_iters, seed):
-            before = read_launches()
+            before = kernel_launches()
             out = inner(engine, batch_, labels_, num_obj_, num_iters, seed)
             seen.update(engine=engine, batch=batch_, labels=labels_,
                         num_obj=num_obj_, num_iters=num_iters,
                         rollout_launches={k: v - before[k] for k, v in
-                                          read_launches().items()})
+                                          kernel_launches().items()})
             return out
         return rollout
 
@@ -2999,7 +3015,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
         inner = orig_step(cfg_, model, opt, mesh_)
 
         def step(*args):
-            before = read_launches()
+            before = kernel_launches()
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
@@ -3009,7 +3025,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
             seen["steps"].append(dict(
                 ms=start.elapsed_time(end), loss=float(out["loss"]),
                 launches={k: v - before[k] for k, v in
-                          read_launches().items()}))
+                          kernel_launches().items()}))
             return out
         return step
 
@@ -3026,7 +3042,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
         zero_launches()
         history = pmain.main(args, log=lambda m: None)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = kernel_launches()
     finally:
         ptrain.make_dp_rollout = orig_rollout
         pmain.make_dp_train_step = orig_step
@@ -3045,7 +3061,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
             engine._click_bucket((seen["num_iters"] + 1) * max_label),
             max_label)
     del scene
-    one_rollout = read_launches()
+    one_rollout = kernel_launches()
     opt, _ = make_optimizer(engine.model, cfg, 1)
     zero_launches()
     make_train_step(cfg, engine.model, opt)(
@@ -3053,7 +3069,7 @@ def _dp_rank(torch, dp_scans, dp_list, out_dir):
         device_click_state(cs, counts, cfg.model.max_clicks), seen["labels"],
         seen["num_obj"])
     torch.cuda.synchronize()
-    one_step = read_launches()
+    one_step = kernel_launches()
     same_loss = float(pmax(torch.tensor(seen["steps"][0]["loss"]),
                            mesh["dp"])) == seen["steps"][0]["loss"]
     return dict(identical=identical, launches=launches, wall_s=wall_s,
@@ -3145,6 +3161,7 @@ def phase_parallel(torch, scans, val_list, tmp):
     step against the one-process step first); in this process,
     ``--scene_parallel 2`` (one card: one device) against the serial host
     loop, and ``--sp 2`` without a group refused on nccl in one line."""
+    from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch import eval_multi_obj
     from agile3d_torch.cli import run
     from agile3d_torch.data.synthetic import write_benchmark
@@ -3162,7 +3179,7 @@ def phase_parallel(torch, scans, val_list, tmp):
         eval_multi_obj.main(parse(_eval_argv(scans, val_list, out, *extra)),
                             log=quiet)
         torch.cuda.synchronize()
-        one[name] = dict(rows=_csv_rows(out), launches=read_launches())
+        one[name] = dict(rows=_csv_rows(out), launches=kernel_launches())
 
     err = io.StringIO()
     code = None
@@ -3266,6 +3283,226 @@ def phase_parallel(torch, scans, val_list, tmp):
     return {"sp_eval": sum_ranks(sp["sp_eval"]["launches"]),
             "sp_backbone_eval": sum_ranks(sp["sp_backbone_eval"]["launches"]),
             "dp_train": sum_ranks([d["launches"] for d in dp])}
+
+
+# the regime in miniature (train_regime): 10 train and 4 val scenes of
+# 30,000 points (2 objects, to hold the validations' time), 4 epochs of 2
+# steps, the drop at 3 and validation every 2. The first piece is cut
+# (TERM, the wall-clock bound's path) once main logs epoch REGIME_CUT_AFTER
+# done, after that epoch's validation: the cut falls in epoch 2's training,
+# never inside a validation. REGIME_BOUND_S bounds the piece's wall clock
+# (~41 s on an H100) in case that line never comes
+REGIME = dict(scenes=10, val_scenes=4, n_points=30000, num_obj=2, epochs=4,
+              lr_drop_frac=0.75, val_epochs=2)
+REGIME_CUT_AFTER = 1
+REGIME_BOUND_S = 240.0
+# stress_kitti at the KITTI-360 size, 3 timed passes of each part
+STRESS_ARGS = ["--points", "1200000", "--reps", "3"]
+# compare_rollout_paths on 2 scenes of 50,000 points, 4 objects, 3 clicks
+# an object
+ROLLOUT_GROUPS = "2x4x50000"
+ROLLOUT_CLICKS = 3
+
+
+def _val_banded_levels(scans, val_list):
+    """Per val scene, read from ``scans`` as ``main`` reads it (one-scene
+    eval batches): the levels whose k3 convs take B1, and whether its stem
+    takes B2."""
+    from agile3d_torch.config import Config
+    from agile3d_torch.data.datasets import InterMultiObjDataset, collate_scenes
+    from agile3d_torch.models.backbone import BANDED_MIN_ROWS
+
+    cfg = Config()
+    ds = InterMultiObjDataset(scans, val_list, cfg.model.voxel_size)
+    out = []
+    for i in range(len(ds)):
+        pyr = collate_scenes([ds[i]], cfg.buckets).pyramid
+        out.append((_banded_levels(pyr),
+                    int(pyr.levels[0].k5.shape[0] >= BANDED_MIN_ROWS)))
+    return out
+
+
+def phase_regime(torch, tmp):
+    """``python -m agile3d_torch.tools.train_regime`` (its ``main``, in
+    process; it runs ``python -m agile3d_torch.main`` as a child) at a
+    miniature of the regime: a first piece cut once epoch
+    ``REGIME_CUT_AFTER`` is done (in epoch 2's training), then
+    ``--resume`` from its last checkpoint. Both val curves must come out
+    (one from each piece), the LR must read 1e-5 from the drop on, the
+    optimizer must have taken every step, and the kernels' launches (from
+    the children's logs) must be the routing rule's: 12 B1 and 4 B3 a step
+    for each banded level (3 B1 to a B3), 4 B1 a banded level and 1 B2 for
+    each val scene's eval forward, and at least one distance launch a step
+    (the device rollout's rounds, 1-20)."""
+    from agile3d_torch.tools import train_regime
+
+    t0 = time.time()
+    flags = ["--device", DEVICE] + [
+        a for k, v in REGIME.items() for a in (f"--{k}", str(v))]
+    lines = []
+    work = os.path.join(tmp, "regime")
+    argv = [work] + flags
+    first = train_regime.main(argv + ["--max_seconds", str(REGIME_BOUND_S)],
+                              log=lines.append,
+                              stop_after_epoch=REGIME_CUT_AFTER)
+    ckpt = train_regime.last_checkpoint(work)
+    check(first["pieces"][0]["cut"] and ckpt is not None
+          and REGIME_CUT_AFTER in first["pieces"][0]["epochs_done"],
+          f"regime: the first piece was not cut after epoch "
+          f"{REGIME_CUT_AFTER} with a checkpoint: {first['pieces'][0]}, "
+          f"{lines[-3:]}")
+    second = train_regime.main(argv + ["--resume", ckpt], log=lines.append)
+    pieces = second["pieces"]
+    epochs, steps_per_epoch = REGIME["epochs"], REGIME["scenes"] // 5
+    steps = second["steps"]
+    lc = second["launches"]
+    # main validates from the train scan folder (the val scans are linked
+    # in where their names are free)
+    val_levels = _val_banded_levels(os.path.join(work, "train", "scans"),
+                                    os.path.join(work, "val",
+                                                 "val_list.json"))
+    child_vals = len(second["val_curves"])
+    eval_b1 = child_vals * sum(4 * n for n, _ in val_levels)
+    eval_b2 = child_vals * sum(s for _, s in val_levels)
+    lr = {int(e): v for e, v in second["lr_by_epoch"].items()}
+    drop = train_regime.lr_drop_epoch(epochs, REGIME["lr_drop_frac"])
+    emit({"phase": "regime", "config": REGIME,
+          "cut_after_epoch": REGIME_CUT_AFTER,
+          "pieces": [{k: p[k] for k in ("exit", "wall_s", "cut", "resume",
+                                         "resumed_from", "epochs_done",
+                                         "steps", "launches")}
+                     for p in pieces],
+          "steps": steps, "steps_per_s": steps / sum(
+              p["wall_s"] for p in pieces),
+          "lr_by_epoch": lr,
+          "val_curves": {e: {m: finite(v) for m, v in c.items()}
+                         for e, c in second["val_curves"].items()},
+          "launches": lc, "launches_per_step": {
+              "banded_conv": (lc["banded_conv"] - eval_b1) / max(steps, 1),
+              "banded_conv_dw": lc["banded_conv_dw"] / max(steps, 1),
+              "boundary_distances_all":
+                  lc["boundary_distances_all"] / max(steps, 1)},
+          "val_banded_levels": val_levels,
+          "lost_validations": second["lost_validations"],
+          "device": second["device"], "seconds": time.time() - t0})
+    check(len(pieces) == 2 and pieces[0]["cut"] and not pieces[1]["cut"]
+          and pieces[1]["exit"] == 0 and second["in_pieces"],
+          f"regime: not one cut piece and one resumed to the end: {pieces}")
+    check(pieces[0]["epochs_done"] and pieces[1]["resume"] == ckpt
+          and not second["lost_validations"],
+          f"regime: the cut piece finished no epoch, or a validation was "
+          f"lost: {pieces[0]}, {second['lost_validations']}")
+    check(sorted(int(e) for e in second["val_curves"])
+          == list(range(REGIME["val_epochs"] - 1, epochs,
+                        REGIME["val_epochs"])),
+          f"regime: val curves at {sorted(second['val_curves'])}")
+    check(all(math.isfinite(v["IoU@1"]) for v in
+              second["val_curves"].values()), "regime: a non-finite IoU@1")
+    check(lr.get(0) == 1e-4 and lr.get(drop) == 1e-5
+          and lr.get(epochs - 1) == 1e-5,
+          f"regime: LR by epoch {lr}, the drop at {drop}")
+    check(steps == epochs * steps_per_epoch,
+          f"regime: {steps} steps, not {epochs * steps_per_epoch}")
+    ran = sum(len(p["epochs_done"]) for p in pieces) * steps_per_epoch
+    check(lc["banded_conv_dw"] % 4 == 0
+          and 4 * ran <= lc["banded_conv_dw"] <= 8 * ran
+          and lc["banded_conv"] == 3 * lc["banded_conv_dw"] + eval_b1
+          and lc["banded_stem"] == eval_b2,
+          f"regime: launches {lc} for {ran} steps and {child_vals} "
+          f"validations (eval B1 {eval_b1}, B2 {eval_b2})")
+    check(ran <= lc["boundary_distances_all"] <= 20 * ran,
+          f"regime: {lc['boundary_distances_all']} distance launches for "
+          f"{ran} steps")
+    check(lc["banded_window_conv"] == lc["smem_row_gather"] == 0,
+          f"regime: a probe kernel ran: {lc}")
+    return lc
+
+
+def phase_stress(torch):
+    """``python -m agile3d_torch.tools.stress_kitti`` (its ``run``, in
+    process) at 1.2M points over 22 m (the 786,432-row bucket): the chunked
+    attention engaged as the rule picks it, finite masks, the footprint of
+    one backbone and one decoder pass under the oversize guard's estimate,
+    and 4 B1 a banded level and 1 B2 a backbone pass."""
+    from agile3d_torch.utils.profiling import kernel_launches
+    from agile3d_torch.tools import stress_kitti
+
+    t0 = time.time()
+    zero_launches()
+    lines = []
+    res = stress_kitti.run(stress_kitti.get_args_parser().parse_args(
+        STRESS_ARGS + ["--device", DEVICE]), log=lines.append)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    passes = res["backbone_passes"]
+    emit({"phase": "stress", **{k: res[k] for k in (
+        "voxels", "rows", "host_prep_s", "backbone_first_s", "backbone_ms",
+        "forward_mask_ms", "chunk", "chunk_rule", "footprint_gib",
+        "estimate_gib", "footprint_bytes_per_row", "run_peak_gib",
+        "banded_levels", "backbone_passes", "device")},
+        "launches": launches, "seconds": time.time() - t0})
+    check(res["rows"] == KITTI_ROWS, f"stress: {res['rows']} rows")
+    check(res["chunk"] > 0 and res["chunk"] == res["chunk_rule"],
+          f"stress: chunk {res['chunk']}, the rule's {res['chunk_rule']}")
+    check(res["finite"], "stress: non-finite masks")
+    check(res["footprint_gib"] <= res["estimate_gib"],
+          f"stress: footprint {res['footprint_gib']} GiB over the guard's "
+          f"estimate {res['estimate_gib']} GiB")
+    want = {"banded_conv": 4 * res["banded_levels"] * passes,
+            "banded_stem": passes}
+    check(all(launches[k] == v for k, v in want.items())
+          and launches["boundary_distances_all"] == 0
+          and launches["banded_conv_dw"] == 0
+          and launches["banded_window_conv"] == launches[
+              "smem_row_gather"] == 0,
+          f"stress: launches {launches}, want {want}")
+    return launches
+
+
+def phase_rollout_paths(torch, tmp):
+    """``python -m agile3d_torch.tools.compare_rollout_paths`` (its
+    ``compare``, in process) on ROLLOUT_GROUPS at ROLLOUT_CLICKS clicks an
+    object, random weights: no trajectory diverges, the two rollouts'
+    ``EvaluatorMO`` dicts are equal, one distance launch a device round
+    and none in the host loop, one eval backbone a scene on each."""
+    from agile3d_torch.utils.profiling import kernel_launches
+    from agile3d_torch.tools import compare_rollout_paths
+
+    t0 = time.time()
+    zero_launches()
+    res = compare_rollout_paths.compare(
+        os.path.join(tmp, "rollout_cmp"), groups=ROLLOUT_GROUPS,
+        clicks=ROLLOUT_CLICKS, seed=42, checkpoint=None, device=DEVICE,
+        log=lambda *a: None)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    same = lambda a, b: a == b or (math.isnan(a) and math.isnan(b))
+    equal = res["host"].keys() == res["dev"].keys() and all(
+        same(res["host"][k], res["dev"][k]) for k in res["host"])
+    lc = res["launches"]
+    emit({"phase": "rollout_paths", "groups": ROLLOUT_GROUPS,
+          "clicks": ROLLOUT_CLICKS, "n_diverged": res["n_diverged"],
+          "n_traj": res["n_traj"], "first_divergence":
+          res["first_divergence"],
+          # NoC@k is NaN below 20 clicks an object
+          **{k: {m: finite(v) for m, v in res[k].items()}
+             for k in ("host", "dev")},
+          "times": res["times"], "rounds": res["rounds"], "launches": lc,
+          "device": res["device"], "seconds": time.time() - t0})
+    check(res["n_diverged"] == 0 and equal,
+          f"rollout paths: {res['n_diverged']} trajectories diverged; "
+          f"host {res['host']} dev {res['dev']}")
+    scenes = int(ROLLOUT_GROUPS.split("x")[0])
+    for name in ("host", "dev"):
+        check(lc[name]["banded_stem"] == scenes
+              and lc[name]["banded_conv"] % (4 * scenes) == 0
+              and lc[name]["banded_conv"] > 0,
+              f"rollout paths ({name}): backbone launches {lc[name]}")
+    check(lc["host"]["boundary_distances_all"] == 0
+          and lc["dev"]["boundary_distances_all"] == res["rounds"],
+          f"rollout paths: distance launches {lc}, device rounds "
+          f"{res['rounds']}")
+    return launches
 
 
 def kernel_meta():
@@ -3406,6 +3643,13 @@ def main():
         torch.cuda.empty_cache()
         with native_host_prep("parallel"):
             parallel_launches = phase_parallel(torch, scans, val_list, tmp)
+        torch.cuda.empty_cache()
+        regime_launches = phase_regime(torch, tmp)
+        with native_host_prep("stress"):
+            stress_launches = phase_stress(torch)
+        torch.cuda.empty_cache()
+        with native_host_prep("rollout_paths"):
+            rollout_launches = phase_rollout_paths(torch, tmp)
         # bench_train also assembles batches on the numpy path, for its
         # numpy_host times
         with native_host_prep("benches", numpy_too=True):
@@ -3419,6 +3663,8 @@ def main():
              "train": host_train, "train_device_rollout": device_train,
              "bf16_backbone": bf16_launches, "dropout": dropout_launches,
              "resume": resume_launches, **parallel_launches,
+             "regime": regime_launches, "stress": stress_launches,
+             "rollout_paths": rollout_launches,
              "bench": bench_launches["bench"],
              "bench_train": bench_launches["bench_train"]}
     kernels = []

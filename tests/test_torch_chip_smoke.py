@@ -191,8 +191,10 @@ def test_kernels_line_lists_all_six_kernels():
     and main() drives the new phases and reports their launches."""
     import inspect
 
+    from agile3d_torch.utils.profiling import kernel_wrappers
+
     meta = chip_smoke.kernel_meta()
-    assert sorted(meta) == sorted(chip_smoke.kernel_wrappers()) == sorted([
+    assert sorted(meta) == sorted(kernel_wrappers()) == sorted([
         "banded_conv", "banded_conv_dw", "banded_stem", "banded_window_conv",
         "smem_row_gather", "boundary_distances_all"])
     for source, replaces, roles, unit in meta.values():
