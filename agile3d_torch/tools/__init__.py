@@ -2,7 +2,8 @@
 that reach a Pallas kernel, each timing its hand-written CUDA kernel
 beside the plain version and a library call, and the tools that drive the
 package at scale (the training regime and the longer evidence run, a
-KITTI-360-size scene, the two eval rollouts side by side).
+KITTI-360-size scene, the two eval rollouts side by side, the sharded
+backbone's memory a rank, the dp epoch table).
 
     python -m agile3d_torch.tools.probe_banded_kernel [--points N] [--device cuda|cpu]
     python -m agile3d_torch.tools.probe_smem_gather [--points N] [--device cuda|cpu]
@@ -10,12 +11,14 @@ KITTI-360-size scene, the two eval rollouts side by side).
     python -m agile3d_torch.tools.train_evidence [WORKDIR] [EPOCHS]
     python -m agile3d_torch.tools.stress_kitti [--points 1200000] ...
     python -m agile3d_torch.tools.compare_rollout_paths [--out DIR] ...
+    python -m agile3d_torch.tools.measure_sp_hbm [--points 4000000] [--sp 8]
+    python -m agile3d_torch.tools.bench_dp_scaling
 
 They run on the card unless ``--device cpu`` is given; on the CPU the
 wrappers compute the plain versions, and the times are the CPU's. This
 module holds what the probes and the stress tool share: the probe scene,
-timing, the card's name and power limit, and the card's least time for a
-piece of work.
+timing, the card's name and power limit, the card's least time for a
+piece of work, and the spawned ranks' backend.
 """
 
 from __future__ import annotations
@@ -99,6 +102,14 @@ def wall_ms(fn, device: torch.device, reps: int = 10) -> float:
             torch.cuda.synchronize(device)
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def rank_backend(device: torch.device, world: int) -> str:
+    """The backend of ``world`` spawned ranks: ``nccl``, one card a rank,
+    where the machine has that many cards, else ``gloo`` (ranks sharing
+    the one card, or the CPU)."""
+    on_cards = device.type == "cuda" and torch.cuda.device_count() >= world
+    return "nccl" if on_cards else "gloo"
 
 
 def device_label(device: torch.device) -> str:

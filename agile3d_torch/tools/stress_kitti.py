@@ -62,7 +62,7 @@ from agile3d_torch.data.datasets import SceneSample, collate_scenes
 from agile3d_torch.data.synthetic import make_scene
 from agile3d_torch.models.backbone import BANDED_LEVELS, BANDED_MIN_ROWS
 from agile3d_torch.sparse.quantize import sparse_quantize
-from agile3d_torch.tools import device_label, resolve_device, time_ms
+from agile3d_torch.tools import device_label, rank_backend, resolve_device, time_ms
 
 # two rungs beyond the standard ladder: >= 1.5M-voxel scenes pad to them
 STRESS_BUCKETS = tuple(DEFAULT_VOXEL_BUCKETS) + (1572864, 2097152)
@@ -202,8 +202,7 @@ def run_sp(sp: int, scene, clicks, num_obj, pred_masks, device,
     [N, C] (the one-process pass)."""
     from agile3d_torch.parallel.mesh import spawn
 
-    on_cards = device.type == "cuda" and torch.cuda.device_count() >= sp
-    backend = "nccl" if on_cards else "gloo"
+    backend = rank_backend(device, sp)
     with tempfile.TemporaryDirectory(prefix="stress_sp_") as tmp:
         path = os.path.join(tmp, "scene.pt")
         torch.save({"scene": tuple(t.cpu() for t in scene),

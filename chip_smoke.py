@@ -15,7 +15,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 416 -> 384 and 256 -> 256 on the training reference batch's
                 65,536-row level), against its plain PyTorch
                 version on the card, with device times from CUDA events
-                (median of 10 after warm-up, each call behind a short spin
+                (median of 5 after warm-up, each call behind a short spin
                 kernel so that the host's launch work is not timed) for the
                 kernel, the plain version and a library yardstick (one bf16
                 gather and one cuBLAS matmul, timed here only), beside the
@@ -64,7 +64,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 the memory budget pinned at 0.01 GiB (``AGILE3D_HBM_GIB``):
                 one ``error:`` line, a non-zero exit and no kernel launch;
   8. single -- ``python -m agile3d_torch.eval_single_obj`` (in process) on
-                the smoke scene's first 3 objects at the default 20 clicks:
+                the smoke scene's first 2 objects at the default 20 clicks:
                 the device rollout, then ``--host_rollout``; rows equal, 8 k3
                 and 1 stem launches per object, one distance launch per
                 device round, the evaluator finite, then
@@ -86,9 +86,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 and ``forward_mask`` at the smoke scene's 196,608 rows and at
                 a scene that pads to 786,432 (KITTI-360 size), against the
                 oversize guard's estimate;
-  10. train main path -- ``python -m agile3d_torch.main`` (in process): 10
-                synthetic scenes of ~94,000 voxels, batch 5 (the 524,288-row
-                level-0 bucket), one epoch of 2 steps and one validation at
+  10. train main path -- ``python -m agile3d_torch.main`` (in process): 5
+                of 10 synthetic scenes of ~94,000 voxels, batch 5 (the
+                524,288-row level-0 bucket), one epoch of 1 step and one
+                validation at
                 full width, launches counted per step (24 k3, 8 dW, 0
                 stem; the probes' kernels 0), the rollout, the supervised
                 step and the backbone's forward and backward timed with
@@ -97,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 and the host rollouts with the click order pinned: the
                 click sets must agree;
   13. benches -- ``python -m agile3d_torch.bench`` and ``bench_train``
-                (``--batches 2``) in process: their JSON lines finite, 8 k3
+                (``--batches 1 --reps 2 --n_points 75000``) in process: their
+                JSON lines finite, 8 k3
                 + 1 stem launches per eval backbone forward, 16 k3 + 8 dW
                 per supervised step.
 
@@ -145,7 +147,7 @@ after the resume phase,
                 (JAX's 2e-3 band; labels equal where the top two logits
                 part by more), each timed; ``eval_multi_obj --sp 2`` and
                 ``--sp 2 --sp_backbone`` (``main(args)`` inside the ranks'
-                group) at 3 clicks an object against the one-process device
+                group) at 2 clicks an object against the one-process device
                 rollout (IoUs within 1e-4; one distance launch per round on
                 each rank; 8 k3 + 1 stem from the one-process backbone, none
                 from the sharded one; each halo exchange's rows and bytes);
@@ -165,8 +167,8 @@ The kernels line's ``launches_by_path`` gains ``sp_eval``,
 The thirteenth slice (the repository's tools on the port) adds, after the
 parallel phase,
   regime -- ``python -m agile3d_torch.tools.train_regime`` (in process;
-                ``main`` runs as its child) at a miniature: 10 train and 4
-                val scenes of 30,000 points, 4 epochs of 2 steps, the drop
+                ``main`` runs as its child) at a miniature: 5 train and 2
+                val scenes of 30,000 points, 4 epochs of 1 step, the drop
                 at 3, validation every 2; a first piece cut (TERM, as
                 ``--max_seconds`` cuts) once epoch 1 and its validation
                 are done, then ``--resume``: both val curves, one from
@@ -185,6 +187,32 @@ parallel phase,
                 dicts equal, one distance launch a device round and none
                 in the host loop.
 ``launches_by_path`` gains ``regime``, ``stress`` and ``rollout_paths``.
+
+The fourteenth slice (the last two tools) adds, after the rollout paths,
+  sp_hbm -- ``python -m agile3d_torch.tools.measure_sp_hbm`` (in process)
+                at the stress scene (786,432 rows) on 2 ranks sharing the
+                card: the one-process eval backbone's peak (8 B1, 1 B2)
+                above each rank's, the sharded backbone launching no
+                kernel, and the ranks' scene features, gathered back,
+                equal to the one-process pass of the plain convs within
+                the sharded backbone's bounds (mask_feat 2e-4, pos_pcd
+                1e-5, cmin / cmax 1e-6) and to the pass with the kernels
+                within the reference phase's 5e-2 x (max + 1);
+  dp scaling -- ``python -m agile3d_torch.tools.bench_dp_scaling`` (in
+                process) at widths 1 and 2, 2 steps an epoch: finite
+                epochs, one distance launch a round on each rank and no
+                other launch (function, not scaling: the ranks share the
+                card).
+``launches_by_path`` gains ``sp_hbm`` and ``dp_scaling``. To hold the run's
+time, earlier paths run at a smaller depth (the old depth in brackets):
+medians of 5 timed calls for the kernels, the probes and the decoder (10);
+``main`` trains 1 step (2) and the backbone's backward is timed over 2
+passes (4); the single phase takes 2 objects (3); the SP rollouts 2
+clicks an object (3); the regime 5 train and 2 val scenes, 4 epochs of 1
+step (10 and 4, 2 steps); ``bench`` 10 timed decoder calls a dtype (20);
+``bench_train`` 2 timed steps, 1 batch of epoch stepping and scenes of
+75,000 points (3, 2, 150,000). A ``phase_seconds`` line before
+``total_s`` gives each phase's wall time.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -226,11 +254,15 @@ REF_SCENE = dict(num_scenes=1, num_obj=4, n_points=60000, extent=4.0, seed=1)
 # clicks, so the click table crosses the 32 -> 64 bucket
 MAX_NUM_CLICKS = 5
 # training: 10 scenes of ~94,000 voxels (ScanNet-sized), 5 per batch, so
-# every batch pads to the 524,288-row level-0 bucket; 2 steps in one epoch
+# every batch pads to the 524,288-row level-0 bucket; main trains on the
+# first TRAIN_STEPS batches (1 step in one epoch; it ran 2)
 TRAIN_SCENES = dict(num_scenes=10, num_obj=8, n_points=190000, extent=6.0,
                     seed=2)
 TRAIN_BATCH = 5
-TRAIN_STEPS = 2
+TRAIN_STEPS = 1
+# the backbone's backward timed in training: passes, the first a warm-up
+# (it ran 4)
+BACKWARD_PASSES = 2
 # the training reference: two scenes of ~25,000 voxels in one batch (a
 # 65,536-row level 0, so its four k3 convs take the kernels), small enough
 # for two full-width steps on the CPU
@@ -240,7 +272,8 @@ TRAIN_REF_SCENES = dict(num_scenes=2, num_obj=4, n_points=36000, extent=4.0,
 DEVICE_ITERS = 5
 # the single-object phase: the smoke scene's first objects, each one
 # instance of the InterObject3D protocol at its default 20-click budget
-SINGLE_OBJECTS = 3
+# (2 objects; it ran 3)
+SINGLE_OBJECTS = 2
 # the serving phase: a scripted annotation session of this many clicks on
 # the smoke scene, and PERF.md's per-click limit (reported, not enforced)
 SERVE_CLICKS = 20
@@ -276,10 +309,12 @@ REFERENCE_BLOCK = [
 # KITTI-360 size) for the eval footprint
 MEMORY_SCENE = dict(num_scenes=1, num_obj=8, n_points=1400000, extent=14.0,
                     seed=3)
-# the benches' arguments: bench_train's epoch stepping over 2 batches (its
-# default is 4)
-BENCH_ARGS = []
-BENCH_TRAIN_ARGS = ["--batches", "2"]
+# the benches' arguments: bench's 10 timed decoder calls a dtype (its
+# default is 20); bench_train's 2 timed steps (3), epoch stepping over 1
+# batch (4), scenes of 75,000 points (150,000; both finest levels stay
+# banded)
+BENCH_ARGS = ["--reps", "10"]
+BENCH_TRAIN_ARGS = ["--batches", "1", "--reps", "2", "--n_points", "75000"]
 
 
 def emit(obj) -> None:
@@ -296,11 +331,16 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+# timed calls of every kernel, plain version, library call and decoder
+# form (medians; it ran 10)
+TIMING_REPS = 5
+
+
 def finite(x):
     return None if x is None or not math.isfinite(x) else x
 
 
-def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(torch, fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
     """Median device time of ``fn`` over ``reps`` calls on the card: CUDA
     events, each call enqueued behind a short spin kernel so that the
     wrapper's host time is not counted (``agile3d_torch.tools.time_ms``)."""
@@ -309,7 +349,7 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return timed(fn, torch.device(DEVICE), reps=reps, warmup=warmup)
 
 
-def wall_ms(torch, fn, reps: int = 10) -> float:
+def wall_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     """Median host-clock time of ``fn`` through a synchronize: what a
     caller waits, launches included (``agile3d_torch.tools.wall_ms``)."""
     from agile3d_torch.tools import wall_ms as walled
@@ -1027,7 +1067,7 @@ def phase_reference(torch, tmp):
 def phase_decoder(torch, batch):
     """``forward_mask`` on the smoke scene at full width, dense and chunked
     (the chunk as JAX's rule picks it), in f32 and bf16: CUDA-event time
-    (median of 10, behind the spin kernel), host-clock time through a
+    (median of 5, behind the spin kernel), host-clock time through a
     synchronize, and peak memory, in one call; chunked against dense at f32
     within 1e-4 x (max + 1), bf16 against f32 by argmax agreement. Then one
     chunked forward per dtype at a KITTI-360-size shape, scene features
@@ -2055,10 +2095,13 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     from agile3d_torch.utils.ckpt import load_checkpoint
 
     with open(train_list) as f:
-        first = next(iter(json.load(f).items()))
+        scenes = list(json.load(f).items())
     val_list = os.path.join(tmp, "val_one.json")
     with open(val_list, "w") as f:
-        json.dump(dict([first]), f)
+        json.dump(dict(scenes[:1]), f)
+    train_list = os.path.join(tmp, "train_main.json")
+    with open(train_list, "w") as f:
+        json.dump(dict(scenes[:TRAIN_STEPS * TRAIN_BATCH]), f)
     out_dir = os.path.join(tmp, "train_out")
 
     def counts():
@@ -2153,7 +2196,7 @@ def phase_train_main_path(torch, scans, train_list, tmp):
     bb = model.backbone
     fwd_ms = time_ms(torch, lambda: bb(pyr, feats, {}), reps=3, warmup=1)
     bwd = []
-    for _ in range(4):
+    for _ in range(BACKWARD_PASSES):
         out = bb(pyr, feats, {})[-1]
         cot = torch.randn(out.shape, generator=torch.Generator(
             device=DEVICE).manual_seed(0), device=DEVICE)
@@ -2805,9 +2848,9 @@ def phase_benches(torch):
 # two ranks share the one card: what they measure is function and memory,
 # not scaling
 PARALLEL_RANKS = 2
-# the SP rollouts at 3 clicks an object (cut from the main path's 5, to
-# hold the time): 16 rounds after round 0
-SP_CLICKS = 3
+# the SP rollouts at 2 clicks an object (cut from the main path's 5, to
+# hold the time; it ran 3): 8 rounds after round 0
+SP_CLICKS = 2
 # JAX's band for the sharded decoder against the one-process one
 # (tests/test_parallel.py), rtol and atol
 SP_BAND = 2e-3
@@ -3285,14 +3328,14 @@ def phase_parallel(torch, scans, val_list, tmp):
             "dp_train": sum_ranks([d["launches"] for d in dp])}
 
 
-# the regime in miniature (train_regime): 10 train and 4 val scenes of
-# 30,000 points (2 objects, to hold the validations' time), 4 epochs of 2
-# steps, the drop at 3 and validation every 2. The first piece is cut
+# the regime in miniature (train_regime): 5 train and 2 val scenes of
+# 30,000 points (2 objects, to hold the validations' time), 4 epochs of 1
+# step, the drop at 3 and validation every 2. The first piece is cut
 # (TERM, the wall-clock bound's path) once main logs epoch REGIME_CUT_AFTER
 # done, after that epoch's validation: the cut falls in epoch 2's training,
 # never inside a validation. REGIME_BOUND_S bounds the piece's wall clock
 # (~41 s on an H100) in case that line never comes
-REGIME = dict(scenes=10, val_scenes=4, n_points=30000, num_obj=2, epochs=4,
+REGIME = dict(scenes=5, val_scenes=2, n_points=30000, num_obj=2, epochs=4,
               lr_drop_frac=0.75, val_epochs=2)
 REGIME_CUT_AFTER = 1
 REGIME_BOUND_S = 240.0
@@ -3505,6 +3548,106 @@ def phase_rollout_paths(torch, tmp):
     return launches
 
 
+# measure_sp_hbm at the stress scene (786,432 rows) on two ranks
+SP_HBM_ARGS = ["--points", "1200000", "--extent", "22", "--sp", "2"]
+# the reference phase's bound on the banded kernels' bf16 operands against
+# plain f32, per unit of (largest value + 1)
+KERNEL_FEATURE_TOL = 5e-2
+# bench_dp_scaling at widths 1 and 2, 2 steps an epoch (the tool: 1, 2, 4,
+# 8 and 8 steps)
+DP_SCALING_WIDTHS = (1, 2)
+DP_SCALING_STEPS = 2
+
+
+def phase_sp_hbm(torch):
+    """``python -m agile3d_torch.tools.measure_sp_hbm`` (its ``run``, in
+    process) at the stress scene on 2 ranks: the one-process eval backbone
+    launches 8 B1 and 1 B2, the sharded one none; each rank's peak is below
+    the one process's; the ranks' scene features, gathered back, equal the
+    one-process pass of the plain convs (the sharded backbone's arithmetic)
+    within the sharded backbone's bounds (``measure_sp_hbm.FEATURE_TOL``:
+    ``tests/test_torch_parallel_backbone.py``'s mask_feat 2e-4, pos_pcd
+    1e-5, cmin / cmax 1e-6), and the pass with the kernels within the
+    reference phase's bound on their bf16 operands."""
+    from agile3d_torch.tools import measure_sp_hbm
+    from agile3d_torch.utils.profiling import kernel_launches
+
+    t0 = time.time()
+    zero_launches()
+    lines = []
+    res = measure_sp_hbm.run(measure_sp_hbm.get_args_parser().parse_args(
+        SP_HBM_ARGS + ["--device", DEVICE]), log=lines.append, compare=True)
+    torch.cuda.synchronize()
+    here = kernel_launches()
+    single, ranks = res["single"], res["sp_ranks"]
+    launches = {k: here[k] + ranks["launches"][k] for k in here}
+    emit({"phase": "sp_hbm", **{k: res[k] for k in (
+        "voxels", "rows", "sp", "host_prep_s", "partition_s", "halo0_rows",
+        "halo0_live", "halo0_share", "reduction", "plain_max_abs_diff",
+        "kernel_max_abs_diff", "mask_feat_scale", "within_tol", "device")},
+        "single": single, "sp_ranks": ranks, "single_gib":
+        single["peak_bytes"] / 2 ** 30, "rank_gib": [
+            b / 2 ** 30 for b in ranks["peak_bytes"]],
+        "launches": launches, "lines": lines[:-1],
+        "seconds": time.time() - t0})
+    check(res["rows"] == KITTI_ROWS, f"sp_hbm: {res['rows']} rows")
+    check(single["launches"]["banded_conv"] == 8
+          and single["launches"]["banded_stem"] == 1
+          and here == single["launches"],
+          f"sp_hbm: one-process launches {single['launches']}, in this "
+          f"process {here}: want 8 B1 and 1 B2, none in the plain pass")
+    check(set(ranks["launches"].values()) == {0},
+          f"sp_hbm: the sharded backbone launched {ranks['launches']}")
+    check(all(b < single["peak_bytes"] for b in ranks["peak_bytes"]),
+          f"sp_hbm: rank peaks {ranks['peak_bytes']} not below the one "
+          f"process's {single['peak_bytes']}")
+    check(res["within_tol"],
+          f"sp_hbm: sharded features vs the one-process plain pass "
+          f"{res['plain_max_abs_diff']} over {measure_sp_hbm.FEATURE_TOL}")
+    check(res["kernel_max_abs_diff"]["mask_feat"]
+          <= KERNEL_FEATURE_TOL * (res["mask_feat_scale"] + 1),
+          f"sp_hbm: sharded mask features vs the kernel pass "
+          f"{res['kernel_max_abs_diff']} (scale {res['mask_feat_scale']})")
+    return launches
+
+
+def phase_dp_scaling(torch):
+    """``python -m agile3d_torch.tools.bench_dp_scaling`` (its ``run``, in
+    process) at widths DP_SCALING_WIDTHS, DP_SCALING_STEPS steps an epoch:
+    both epochs of each width finite, and the device rollout's distance
+    kernel launched once a round on each rank (3 rounds a step), nothing
+    else (no banded level at 8 channels). Two gloo ranks share the card:
+    the times are not scaling."""
+    from agile3d_torch.tools import bench_dp_scaling
+
+    t0 = time.time()
+    lines = []
+    res = bench_dp_scaling.run(widths=DP_SCALING_WIDTHS,
+                               steps=DP_SCALING_STEPS, device=DEVICE,
+                               log=lines.append)
+    rows = res["rows"]
+    launches = {k: sum(e[k] for row in rows for e in row["launches"])
+                for k in rows[0]["launches"][0]}
+    emit({"phase": "dp_scaling", "table": lines[:-1], "rows": rows,
+          "launches": launches, "device": res["device"],
+          "seconds": time.time() - t0})
+    for row in rows:
+        d = row["dp"]
+        check(math.isfinite(row["epoch_wall_s"])
+              and math.isfinite(row["warm_wall_s"])
+              and all(math.isfinite(v) for v in row["stats"].values()),
+              f"dp_scaling: width {d} not finite: {row}")
+        want = res["rollout_rounds"] * DP_SCALING_STEPS * d
+        for epoch in row["launches"]:
+            others = {k: v for k, v in epoch.items()
+                      if k != "boundary_distances_all"}
+            check(epoch["boundary_distances_all"] == want
+                  and set(others.values()) == {0},
+                  f"dp_scaling: width {d} launched {epoch}, want {want} "
+                  f"distance launches and nothing else")
+    return launches
+
+
 def kernel_meta():
     """Per kernel of the port: (source, the TPU kernel or XLA fusion it
     replaces, the rows' roles that its times sum, the unit of those
@@ -3582,8 +3725,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    laps, mark = {}, [t_start]
+
+    def lap(name):
+        """The wall time since the last lap, under ``name``."""
+        now = time.time()
+        laps[name] = now - mark[0]
+        mark[0] = now
 
     phase_device(torch, cuda_build)
+    lap("device")
     with tempfile.TemporaryDirectory(prefix="agile3d_smoke_") as tmp:
         cfg = Config()
         scans, val_list = write_benchmark(os.path.join(tmp, "smoke"),
@@ -3604,56 +3755,85 @@ def main():
         ref_pyr = collate_scenes([ref_ds[i] for i in range(len(ref_ds))],
                                  cfg.buckets).pyramid
         eval_dev = to_device(eval_batch.pyramid, DEVICE)
+        lap("scenes")
         shapes = phase_kernels(torch, kernel_cases(
             eval_dev, to_device(train_batch.pyramid, DEVICE),
             to_device(ref_pyr, DEVICE)))
         shapes += phase_distances(torch, distance_cases(eval_batch,
                                                         train_batch))
+        lap("kernels")
         probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
                                                   eval_dev)
+        lap("probes")
         phase_decoder(torch, eval_batch)
+        lap("decoder")
         del eval_dev, train_batch, train_ds, ref_ds, ref_pyr
         torch.cuda.empty_cache()
         phase_reference(torch, tmp)
+        lap("reference")
         train_run, train_compare, n_lv = phase_train_reference(torch, tmp)
+        lap("train_reference")
         bf16_launches = phase_bf16_backbone(torch, eval_batch, train_run,
                                             train_compare, n_lv)
+        lap("bf16_backbone")
         dropout_launches = phase_dropout(torch, train_run, n_lv)
+        lap("dropout")
         del train_run, train_compare
         with native_host_prep("eval"):
             eval_launches = phase_main_path(torch, scans, val_list,
                                             os.path.join(tmp, "out"))
+        lap("eval")
         oversize_launches = phase_oversize(torch, scans, val_list, tmp)
+        lap("oversize")
         with native_host_prep("single"):
             single_launches = phase_single(torch, scans, tmp)
+        lap("single")
         with native_host_prep("serve"):
             serve_launches = phase_serve(torch, scans, tmp)
+        lap("serve")
         variant_launches = phase_variants(torch, eval_batch, scans, val_list,
                                           tmp)
+        lap("variants")
         phase_memory(torch, eval_batch, tmp)
+        lap("memory")
         del eval_batch
         with native_host_prep("train"):
             host_train = phase_train_main_path(torch, train_scans,
                                                train_list, tmp)
+        lap("train")
         with native_host_prep("train_device_rollout"):
             device_train = phase_train_device_rollout(torch, train_scans,
                                                       train_list, tmp)
+        lap("train_device_rollout")
         with native_host_prep("resume"):
             resume_launches = phase_resume(torch, tmp)
+        lap("resume")
         torch.cuda.empty_cache()
         with native_host_prep("parallel"):
             parallel_launches = phase_parallel(torch, scans, val_list, tmp)
+        lap("parallel")
         torch.cuda.empty_cache()
         regime_launches = phase_regime(torch, tmp)
+        lap("regime")
         with native_host_prep("stress"):
             stress_launches = phase_stress(torch)
+        lap("stress")
         torch.cuda.empty_cache()
         with native_host_prep("rollout_paths"):
             rollout_launches = phase_rollout_paths(torch, tmp)
+        lap("rollout_paths")
+        torch.cuda.empty_cache()
+        with native_host_prep("sp_hbm"):
+            sp_hbm_launches = phase_sp_hbm(torch)
+        lap("sp_hbm")
+        torch.cuda.empty_cache()
+        dp_scaling_launches = phase_dp_scaling(torch)
+        lap("dp_scaling")
         # bench_train also assembles batches on the numpy path, for its
         # numpy_host times
         with native_host_prep("benches", numpy_too=True):
             bench_launches, _ = phase_benches(torch)
+        lap("benches")
 
     meta = kernel_meta()
     paths = {"probe": probe_launches, "eval": eval_launches,
@@ -3665,6 +3845,7 @@ def main():
              "resume": resume_launches, **parallel_launches,
              "regime": regime_launches, "stress": stress_launches,
              "rollout_paths": rollout_launches,
+             "sp_hbm": sp_hbm_launches, "dp_scaling": dp_scaling_launches,
              "bench": bench_launches["bench"],
              "bench_train": bench_launches["bench_train"]}
     kernels = []
@@ -3719,6 +3900,7 @@ def main():
                 "shape", "query_rows", "pairs", "all_pairs", "pairs_share",
                 "ms", "parent_ms", "plain_ms", "bound_ms")} for r in mine}
         kernels.append(entry)
+    emit({"phase_seconds": laps})
     emit({"total_s": time.time() - t_start})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

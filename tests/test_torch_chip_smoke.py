@@ -295,3 +295,25 @@ def test_main_drives_the_bf16_dropout_and_resume_phases():
                  '"eval"', '"single"', '"serve"'):
         assert path in main
     assert '"bf16_shapes"' in main
+
+
+def test_main_runs_the_tool_phases_and_times_every_phase():
+    """main() drives every tool's phase and reports its launches; each
+    phase is followed by its own lap in the phase_seconds line."""
+    import inspect
+    import re
+
+    main = inspect.getsource(chip_smoke.main)
+    for phase in ("phase_regime", "phase_stress", "phase_rollout_paths",
+                  "phase_sp_hbm", "phase_dp_scaling"):
+        assert callable(getattr(chip_smoke, phase))
+        assert f"{phase}(" in main
+    for path in ('"sp_hbm"', '"dp_scaling"', '"regime"', '"stress"',
+                 '"rollout_paths"'):
+        assert path in main
+    calls = re.findall(r"\bphase_(\w+)\(", main)
+    laps = re.findall(r'\blap\("(\w+)"\)', main)
+    assert len(laps) == len(set(laps)) and len(laps) >= len(set(calls))
+    assert "phase_seconds" in main
+    assert chip_smoke.SP_HBM_ARGS[chip_smoke.SP_HBM_ARGS.index("--sp") + 1] == "2"
+    assert chip_smoke.DP_SCALING_WIDTHS == (1, 2)

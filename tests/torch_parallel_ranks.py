@@ -267,3 +267,36 @@ def torchrun_like(rank: int, port: int, out_dir: str) -> None:
     got = launch(2, _world_view, device="cpu")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"view": got, "left_group": not dist.is_initialized()}, f)
+
+
+def first_objects(labels_row, rng, max_obj: int = 10):
+    """``subsample_objects`` with its draw pinned: the foreground ids in
+    ascending order, at most ``max_obj`` (pure numpy: the JAX tests patch
+    the JAX package's draw with it too)."""
+    ids = np.unique(labels_row)
+    ids = ids[ids > 0][:max_obj]
+    out = np.where(labels_row >= 0, 0, -1).astype(np.int32)
+    for i, obj in enumerate(ids):
+        out[labels_row == obj] = i + 1
+    return out, int(len(ids))
+
+
+def pinned_dp_epoch(cfg, scenes, sd) -> list:
+    """One epoch of ``tools/bench_dp_scaling.py``'s rank from the weights
+    ``sd``, with the two draws that the JAX epoch takes from other
+    generators pinned: the object subsets (``first_objects``) and the
+    order of each round's clicks (all ties: the clusters' own order)."""
+    from agile3d_torch.parallel import train as ptrain
+    from agile3d_torch.tools.bench_dp_scaling import epochs_rank
+
+    rollout = ptrain.train_rollout
+
+    def in_order(model, scene, labels, num_obj, num_iters, gen, mc,
+                 max_label=10, order=None):
+        ties = torch.zeros((labels.shape[0], max_label), device=labels.device)
+        return rollout(model, scene, labels, num_obj, num_iters, gen, mc,
+                       max_label, order=ties)
+
+    ptrain.subsample_objects = first_objects
+    ptrain.train_rollout = in_order
+    return epochs_rank(cfg, scenes, "cpu", 1, sd)
