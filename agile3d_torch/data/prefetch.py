@@ -17,12 +17,19 @@ training loop's pre-drawn per-batch seed among it), one worker keeps the
 dataset's own draws in their order, and results come in submission order,
 so the trajectory is the same at every depth, depth 0 (a plain map, no
 thread) included.
+
+Spans (``utils/profiling.py``): ``agile3d.data.prepare`` around each
+``fn(item)``, on the worker thread or inline, and ``agile3d.data.wait``
+around the consumer's wait for each result (inline: around the prepare),
+closed before the result is yielded.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, Iterator, Sequence, TypeVar
+
+from agile3d_torch.utils.profiling import annotate
 
 T = TypeVar("T")
 R = TypeVar("R")
@@ -68,7 +75,8 @@ class BatchPrefetcher:
                 i = self._next_claim
                 self._next_claim += 1
             try:
-                r: object = self._fn(self._items[i])
+                with annotate("agile3d.data.prepare"):
+                    r: object = self._fn(self._items[i])
             except BaseException as e:  # handed to the consumer
                 r = _WorkerError(e)
             with self._cv:
@@ -78,11 +86,14 @@ class BatchPrefetcher:
     def __iter__(self) -> Iterator[R]:
         if self._depth == 0:
             for it in self._items:
-                yield self._fn(it)
+                with annotate("agile3d.data.wait"), \
+                        annotate("agile3d.data.prepare"):
+                    r = self._fn(it)
+                yield r
             return
         try:
             for i in range(len(self._items)):
-                with self._cv:
+                with annotate("agile3d.data.wait"), self._cv:
                     while i not in self._results and not self._stop:
                         self._cv.wait(timeout=1.0)
                     if self._stop:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from agile3d_torch.parallel.mesh import ONE_RANK, Axis, psum
+from agile3d_torch.utils.profiling import annotate
 
 # pair distances computed per chunk of error rows: rows * N <= this
 _CHUNK_ELEMS = 1 << 26
@@ -70,47 +71,48 @@ def simulate_clicks(
 ) -> NewClicks | None:
     """Next clicks for the current prediction, or None when nothing is
     wrong. The boundary distances run on ``device``."""
-    err = pred != labels
-    if not err.any():
-        return None
+    with annotate("agile3d.engine.clicks"):
+        err = pred != labels
+        if not err.any():
+            return None
 
-    k = max_label + 1
-    compact = labels.astype(np.int64) * k + pred.astype(np.int64)
-    cluster = np.where(err, compact, -1).astype(np.int32)
-    err_rows = np.nonzero(err)[0].astype(np.int32)
-    d = boundary_distances(
-        torch.as_tensor(np.asarray(coords, np.float32), device=device),
-        torch.as_tensor(cluster, device=device),
-        torch.ones(len(pred), dtype=torch.bool, device=device),
-        torch.as_tensor(err_rows, device=device)).cpu().numpy()
+        k = max_label + 1
+        compact = labels.astype(np.int64) * k + pred.astype(np.int64)
+        cluster = np.where(err, compact, -1).astype(np.int32)
+        err_rows = np.nonzero(err)[0].astype(np.int32)
+        d = boundary_distances(
+            torch.as_tensor(np.asarray(coords, np.float32), device=device),
+            torch.as_tensor(cluster, device=device),
+            torch.ones(len(pred), dtype=torch.bool, device=device),
+            torch.as_tensor(err_rows, device=device)).cpu().numpy()
 
-    err_cl = cluster[err_rows]
-    # rank clusters by max boundary distance, descending; ties keep the
-    # reference's unique() order (ascending 96*gt + 11*pred key)
-    uniq = np.unique(err_cl)
-    ref_key = (uniq // k) * 96 + (uniq % k) * 11
-    uniq = uniq[np.argsort(ref_key, kind="stable")]
-    sizes = np.array([d[err_cl == c].max() for c in uniq])
-    ranked = uniq[np.argsort(-sizes, kind="stable")]
+        err_cl = cluster[err_rows]
+        # rank clusters by max boundary distance, descending; ties keep the
+        # reference's unique() order (ascending 96*gt + 11*pred key)
+        uniq = np.unique(err_cl)
+        ref_key = (uniq // k) * 96 + (uniq % k) * 11
+        uniq = uniq[np.argsort(ref_key, kind="stable")]
+        sizes = np.array([d[err_cl == c].max() for c in uniq])
+        ranked = uniq[np.argsort(-sizes, kind="stable")]
 
-    if training:
-        selected = ranked[:num_obj]
-    elif current_num_clicks == 0:
-        selected = ranked
-    else:
-        selected = ranked[:1]
-    selected = list(selected)
-    rng.shuffle(selected)
+        if training:
+            selected = ranked[:num_obj]
+        elif current_num_clicks == 0:
+            selected = ranked
+        else:
+            selected = ranked[:1]
+        selected = list(selected)
+        rng.shuffle(selected)
 
-    vox, obj, order = [], [], []
-    for click_order, c in enumerate(selected):
-        rows = err_rows[err_cl == c]
-        best = rows[int(np.argmax(d[err_cl == c]))]  # first index on ties
-        vox.append(int(best))
-        obj.append(int(labels[best]))
-        order.append(click_order)
-    return NewClicks(np.array(vox, np.int32), np.array(obj, np.int32),
-                     np.array(order, np.int32))
+        vox, obj, order = [], [], []
+        for click_order, c in enumerate(selected):
+            rows = err_rows[err_cl == c]
+            best = rows[int(np.argmax(d[err_cl == c]))]  # first index on ties
+            vox.append(int(best))
+            obj.append(int(labels[best]))
+            order.append(click_order)
+        return NewClicks(np.array(vox, np.int32), np.array(obj, np.int32),
+                         np.array(order, np.int32))
 
 
 class HostClicks:

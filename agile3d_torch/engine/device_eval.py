@@ -52,6 +52,7 @@ from agile3d_torch.parallel.mesh import (
     pmin,
     psum,
 )
+from agile3d_torch.utils.profiling import annotate
 
 
 def error_clusters(pred: torch.Tensor, labels: torch.Tensor,
@@ -118,24 +119,26 @@ def simulate_click_device(pred: torch.Tensor, labels: torch.Tensor,
     the whole scene's (``error_clusters``); the click is a ``pmax`` of the
     distance, then a ``pmin`` of the first global row attaining it (the
     one-process tie-break), the same on every rank."""
-    err, compact, d, sizes = error_clusters(
-        pred[None], labels[None], coords[None], valid[None], max_label, axis)
-    err, compact, d, sizes = err[0], compact[0], d[0], sizes[0]
-    big = torch.iinfo(torch.int64).max
-    best = torch.argmin(torch.where(sizes == sizes.max(),
-                                    reference_keys(max_label, d.device), big))
-    score = torch.where(err & (compact == best), d,
-                        torch.full((), float("-inf"), device=d.device))
-    nl, n = pred.shape[0], valid.shape[0]
-    lo = axis_index(axis) * nl
-    rows = lo + torch.arange(nl, device=d.device)
-    vox = pmin(torch.where(score == pmax(score.max(), axis), rows, n).min(),
-               axis)
-    mine = (vox >= lo) & (vox < lo + nl)
-    obj = psum(torch.where(mine, labels[(vox - lo).clamp(0, nl - 1)], 0),
-               axis)
-    has_error = psum(err.any().to(torch.int32), axis) > 0
-    return vox.to(torch.int32), obj.to(torch.int32), has_error
+    with annotate("agile3d.engine.clicks"):
+        err, compact, d, sizes = error_clusters(
+            pred[None], labels[None], coords[None], valid[None], max_label,
+            axis)
+        err, compact, d, sizes = err[0], compact[0], d[0], sizes[0]
+        big = torch.iinfo(torch.int64).max
+        best = torch.argmin(torch.where(
+            sizes == sizes.max(), reference_keys(max_label, d.device), big))
+        score = torch.where(err & (compact == best), d,
+                            torch.full((), float("-inf"), device=d.device))
+        nl, n = pred.shape[0], valid.shape[0]
+        lo = axis_index(axis) * nl
+        rows = lo + torch.arange(nl, device=d.device)
+        vox = pmin(torch.where(score == pmax(score.max(), axis), rows,
+                               n).min(), axis)
+        mine = (vox >= lo) & (vox < lo + nl)
+        obj = psum(torch.where(mine, labels[(vox - lo).clamp(0, nl - 1)], 0),
+                   axis)
+        has_error = psum(err.any().to(torch.int32), axis) > 0
+        return vox.to(torch.int32), obj.to(torch.int32), has_error
 
 
 @torch.no_grad()
@@ -159,48 +162,55 @@ def rollout_rounds(model, scene, vox: torch.Tensor, obj: torch.Tensor,
     points; the decoder is ``parallel/sp.py::forward_mask_local``, the IoU
     and the click reduce over the ranks, and the click table stays the
     same on every rank (each makes the same update from reduced values)."""
-    nl = labels.shape[0]
-    lo = axis_index(axis) * nl
-    vox_valid = scene.vox_valid[0] & (labels >= 0)
-    target = labels.clamp(min=0)
-    # the whole scene's coordinates and validity, gathered once
-    coords = all_gather(scene.raw[0].contiguous(), axis)
-    valid = all_gather(vox_valid, axis)
-    if axis.size == 1:
-        decode = lambda cs: model.forward_mask(scene, cs, num_obj)[
-            "pred_masks"]
-    else:
-        from agile3d_torch.parallel.sp import forward_mask_local
+    with annotate("agile3d.engine.rollout"):
+        nl = labels.shape[0]
+        lo = axis_index(axis) * nl
+        vox_valid = scene.vox_valid[0] & (labels >= 0)
+        target = labels.clamp(min=0)
+        # the whole scene's coordinates and validity, gathered once
+        coords = all_gather(scene.raw[0].contiguous(), axis)
+        valid = all_gather(vox_valid, axis)
+        if axis.size == 1:
+            decode = lambda cs: model.forward_mask(scene, cs, num_obj)[
+                "pred_masks"]
+        else:
+            from agile3d_torch.parallel.sp import forward_mask_local
 
-        decode = lambda cs: forward_mask_local(model, scene, cs, num_obj,
-                                               axis)[-1]
-    mc = vox.shape[0]
-    done = torch.zeros((), dtype=torch.bool, device=vox.device)
-    iou = None
-    ious = []
-    for width in buckets:
-        pred = decode(ClickState(vox[None, :width], obj[None, :width],
-                                 tim[None, :width]))
-        pred = pred[0].argmax(-1).to(torch.int32)
-        # the clicks on this rank's rows
-        mine = vox[:width] - lo
-        mine = torch.where((mine >= 0) & (mine < nl), mine, -1)
-        pred = click_override_device(pred, mine, obj[:width])
-        new_iou = mean_iou(all_gather(pred, axis)[inverse_map], labels_full,
-                           max_label, full_valid, axis)
-        iou = new_iou if iou is None else torch.where(done, iou, new_iou)
-        ious.append(iou)
+            decode = lambda cs: forward_mask_local(model, scene, cs, num_obj,
+                                                   axis)[-1]
+        mc = vox.shape[0]
+        done = torch.zeros((), dtype=torch.bool, device=vox.device)
+        iou = None
+        ious = []
+        for width in buckets:
+            with annotate("agile3d.engine.round"):
+                pred = decode(ClickState(vox[None, :width], obj[None, :width],
+                                         tim[None, :width]))
+                pred = pred[0].argmax(-1).to(torch.int32)
+                # the clicks on this rank's rows
+                mine = vox[:width] - lo
+                mine = torch.where((mine >= 0) & (mine < nl), mine, -1)
+                pred = click_override_device(pred, mine, obj[:width])
+                new_iou = mean_iou(all_gather(pred, axis)[inverse_map],
+                                   labels_full, max_label, full_valid, axis)
+                iou = new_iou if iou is None else torch.where(done, iou,
+                                                              new_iou)
+                ious.append(iou)
 
-        new_vox, new_obj, has_err = simulate_click_device(
-            pred, target, coords, valid, max_label=max_label, axis=axis)
-        has_err = has_err & ~done
-        done = ~has_err  # converged: no later round adds a click
-        slot = count.clamp(0, mc - 1).long().reshape(1)
-        vox = torch.where(has_err, vox.index_put((slot,), new_vox), vox)
-        obj = torch.where(has_err, obj.index_put((slot,), new_obj), obj)
-        tim = torch.where(has_err, tim.index_put((slot,), count), tim)
-        count = count + has_err.to(count.dtype)
-    return torch.stack(ious)
+                new_vox, new_obj, has_err = simulate_click_device(
+                    pred, target, coords, valid, max_label=max_label,
+                    axis=axis)
+                has_err = has_err & ~done
+                done = ~has_err  # converged: no later round adds a click
+                slot = count.clamp(0, mc - 1).long().reshape(1)
+                vox = torch.where(has_err, vox.index_put((slot,), new_vox),
+                                  vox)
+                obj = torch.where(has_err, obj.index_put((slot,), new_obj),
+                                  obj)
+                tim = torch.where(has_err, tim.index_put((slot,), count),
+                                  tim)
+                count = count + has_err.to(count.dtype)
+        return torch.stack(ious)
 
 
 def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
@@ -208,60 +218,69 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
                           mode: str = "multi") -> list[str]:
     """``engine/eval.py::evaluate_scene`` with rounds >= 1 on the device:
     the same CSV rows ``id scene obj clicks iou``."""
-    if len(batch.scene_names) != 1:
-        raise ValueError("eval runs one scene per batch")
-    cfg = engine.cfg
-    dev = engine.device
-    max_label = cfg.model.max_fg_objects
-    scene = engine.run_backbone(batch)
+    with annotate("agile3d.engine.scene"):
+        if len(batch.scene_names) != 1:
+            raise ValueError("eval runs one scene per batch")
+        cfg = engine.cfg
+        dev = engine.device
+        max_label = cfg.model.max_fg_objects
+        scene = engine.run_backbone(batch)
 
-    n = batch.sample_idx.shape[1]
-    n_valid = int((batch.sample_idx[0] >= 0).sum())
-    labels_v = batch.labels[0, :n_valid]
-    num_obj = int(batch.num_obj[0])
-    tag = batch.obj_tags[0]
-    scene_name = batch.scene_names[0].replace("scene", "")
+        n = batch.sample_idx.shape[1]
+        n_valid = int((batch.sample_idx[0] >= 0).sum())
+        labels_v = batch.labels[0, :n_valid]
+        num_obj = int(batch.num_obj[0])
+        tag = batch.obj_tags[0]
+        scene_name = batch.scene_names[0].replace("scene", "")
 
-    # round 0 on the host: zero prediction, one click per error cluster
-    clicks = HostClicks(cfg.model.max_clicks)
-    pred0 = np.zeros(n_valid, np.int32)
-    iou0 = engine.scene_iou(pred0, batch.inverse_map[0], batch.labels_full[0])
-    rows = [f"{instance_id} {scene_name} {tag} "
-            f"{click_column(mode, 0, num_obj)} {iou0}"]
-    new = simulate_clicks(pred0, labels_v, batch.raw[:n_valid],
-                          num_obj=num_obj, training=False,
-                          current_num_clicks=0, rng=rng, device=dev,
-                          max_label=max_label)
-    if new is not None:
-        clicks.extend(new)
+        with annotate("agile3d.engine.round0"):
+            # round 0 on the host: zero prediction, one click per error
+            # cluster
+            clicks = HostClicks(cfg.model.max_clicks)
+            pred0 = np.zeros(n_valid, np.int32)
+            iou0 = engine.scene_iou(pred0, batch.inverse_map[0],
+                                    batch.labels_full[0])
+            rows = [f"{instance_id} {scene_name} {tag} "
+                    f"{click_column(mode, 0, num_obj)} {iou0}"]
+            new = simulate_clicks(pred0, labels_v, batch.raw[:n_valid],
+                                  num_obj=num_obj, training=False,
+                                  current_num_clicks=0, rng=rng, device=dev,
+                                  max_label=max_label)
+            if new is not None:
+                clicks.extend(new)
 
-    budget, first = click_schedule(mode, num_obj, max_num_clicks)
-    rounds = budget - first + 1
-    # round r's decoder sees the clicks of round 0 and one more per round
-    # before it (until convergence, after which the IoU is held): the host
-    # loop's bucket of that count; the table holds every click they add
-    buckets = [engine._click_bucket(clicks.count + r) for r in range(rounds)]
-    mc = engine._click_bucket(clicks.count + rounds)
-    labels_pad = np.full(n, -1, np.int32)
-    labels_pad[:n_valid] = labels_v
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    table = (t(clicks.vox[:mc]), t(clicks.obj[:mc]), t(clicks.time[:mc]),
-             torch.tensor(clicks.count, dtype=torch.int32, device=dev),
-             torch.tensor([num_obj], dtype=torch.int32, device=dev))
-    labels_full = t(batch.labels_full[0])
-    inverse_map = t(batch.inverse_map[0].astype(np.int64))
-    if engine.sp > 1:
-        from agile3d_torch.parallel.sp_rollout import rollout_rounds_sp
+            budget, first = click_schedule(mode, num_obj, max_num_clicks)
+            rounds = budget - first + 1
+            # round r's decoder sees the clicks of round 0 and one more per
+            # round before it (until convergence, after which the IoU is
+            # held): the host loop's bucket of that count; the table holds
+            # every click they add
+            buckets = [engine._click_bucket(clicks.count + r)
+                       for r in range(rounds)]
+            mc = engine._click_bucket(clicks.count + rounds)
+            labels_pad = np.full(n, -1, np.int32)
+            labels_pad[:n_valid] = labels_v
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            table = (t(clicks.vox[:mc]), t(clicks.obj[:mc]),
+                     t(clicks.time[:mc]),
+                     torch.tensor(clicks.count, dtype=torch.int32,
+                                  device=dev),
+                     torch.tensor([num_obj], dtype=torch.int32, device=dev))
+            labels_full = t(batch.labels_full[0])
+            inverse_map = t(batch.inverse_map[0].astype(np.int64))
+        if engine.sp > 1:
+            from agile3d_torch.parallel.sp_rollout import rollout_rounds_sp
 
-        ious = rollout_rounds_sp(engine.model, engine.sp_scene(scene),
-                                 *table, t(labels_pad), labels_full,
-                                 inverse_map, buckets, max_label,
-                                 engine.sp_mesh["sp"])
-    else:
-        ious = rollout_rounds(engine.model, scene, *table, t(labels_pad),
-                              labels_full, inverse_map, buckets, max_label)
-    ious = ious.cpu().tolist()
-    for r, iou in enumerate(ious):
-        rows.append(f"{instance_id} {scene_name} {tag} "
-                    f"{click_column(mode, first + r, num_obj)} {iou}")
-    return rows
+            ious = rollout_rounds_sp(engine.model, engine.sp_scene(scene),
+                                     *table, t(labels_pad), labels_full,
+                                     inverse_map, buckets, max_label,
+                                     engine.sp_mesh["sp"])
+        else:
+            ious = rollout_rounds(engine.model, scene, *table, t(labels_pad),
+                                  labels_full, inverse_map, buckets, max_label)
+        with annotate("agile3d.engine.wait"):
+            ious = ious.cpu().tolist()
+        for r, iou in enumerate(ious):
+            rows.append(f"{instance_id} {scene_name} {tag} "
+                        f"{click_column(mode, first + r, num_obj)} {iou}")
+        return rows

@@ -58,6 +58,7 @@ from agile3d_torch.models.criterion import (
 )
 from agile3d_torch.sparse.grid import to_device
 from agile3d_torch.utils.costs import SINGLE_CHIP_HBM_GIB, eval_hbm_gib
+from agile3d_torch.utils.profiling import annotate
 
 
 class SceneTooLargeError(ValueError):
@@ -298,54 +299,58 @@ def evaluate_scene(engine: InteractiveEngine, batch: SceneBatch, *,
     is wrong, the remaining rounds repeat the converged IoU without running
     the model. ``loss_meter`` (a ``utils/misc.py::MetricLogger``) gets each
     model round's validation losses (``InteractiveEngine.val_losses``)."""
-    if len(batch.scene_names) != 1:
-        raise ValueError("eval runs one scene per batch")
-    cfg = engine.cfg
-    scene = engine.run_backbone(batch)
+    with annotate("agile3d.engine.scene"):
+        if len(batch.scene_names) != 1:
+            raise ValueError("eval runs one scene per batch")
+        cfg = engine.cfg
+        scene = engine.run_backbone(batch)
 
-    n_valid = int((batch.sample_idx[0] >= 0).sum())
-    labels_v = batch.labels[0, :n_valid]
-    raw_v = batch.raw[:n_valid]
-    num_obj = int(batch.num_obj[0])
-    tag = batch.obj_tags[0]
-    scene_name = batch.scene_names[0].replace("scene", "")
+        n_valid = int((batch.sample_idx[0] >= 0).sum())
+        labels_v = batch.labels[0, :n_valid]
+        raw_v = batch.raw[:n_valid]
+        num_obj = int(batch.num_obj[0])
+        tag = batch.obj_tags[0]
+        scene_name = batch.scene_names[0].replace("scene", "")
 
-    clicks = HostClicks(cfg.model.max_clicks)
-    budget, first = click_schedule(mode, num_obj, max_num_clicks)
-    current = 0
-    rows = []
-    converged_iou = None
-    while current <= budget:
-        if current == 0:
-            pred = np.zeros(n_valid, np.int32)
-        elif converged_iou is None:
-            out, pred_dev = engine.run_mask(scene, clicks, num_obj)
-            pred = pred_dev[0, :n_valid].cpu().numpy().astype(np.int32)
-            pred = apply_click_override(pred, clicks)
-            if loss_meter is not None:
-                loss_meter.update(**engine.val_losses(out, scene, clicks,
-                                                      labels_v))
+        clicks = HostClicks(cfg.model.max_clicks)
+        budget, first = click_schedule(mode, num_obj, max_num_clicks)
+        current = 0
+        rows = []
+        converged_iou = None
+        while current <= budget:
+            if current == 0:
+                pred = np.zeros(n_valid, np.int32)
+            elif converged_iou is None:
+                out, pred_dev = engine.run_mask(scene, clicks, num_obj)
+                with annotate("agile3d.engine.wait"):
+                    pred = pred_dev[0, :n_valid].cpu().numpy()
+                pred = pred.astype(np.int32)
+                pred = apply_click_override(pred, clicks)
+                if loss_meter is not None:
+                    loss_meter.update(**engine.val_losses(out, scene, clicks,
+                                                          labels_v))
 
-        if converged_iou is None:
-            iou = engine.scene_iou(pred, batch.inverse_map[0],
-                                   batch.labels_full[0])
-        else:
-            iou = converged_iou
-        rows.append(f"{instance_id} {scene_name} {tag} "
-                    f"{click_column(mode, current, num_obj)} {iou}")
-
-        if converged_iou is None:
-            new = simulate_clicks(
-                pred, labels_v, raw_v, num_obj=num_obj, training=False,
-                current_num_clicks=current, rng=rng, device=engine.device,
-                max_label=cfg.model.max_fg_objects)
-            if new is not None:
-                clicks.extend(new)
+            if converged_iou is None:
+                iou = engine.scene_iou(pred, batch.inverse_map[0],
+                                       batch.labels_full[0])
             else:
-                # nothing left to correct: every later round repeats this one
-                converged_iou = iou
-        current += first if current == 0 else 1
-    return rows
+                iou = converged_iou
+            rows.append(f"{instance_id} {scene_name} {tag} "
+                        f"{click_column(mode, current, num_obj)} {iou}")
+
+            if converged_iou is None:
+                new = simulate_clicks(
+                    pred, labels_v, raw_v, num_obj=num_obj, training=False,
+                    current_num_clicks=current, rng=rng, device=engine.device,
+                    max_label=cfg.model.max_fg_objects)
+                if new is not None:
+                    clicks.extend(new)
+                else:
+                    # nothing left to correct: every later round repeats
+                    # this one
+                    converged_iou = iou
+            current += first if current == 0 else 1
+        return rows
 
 
 def evaluate_dataset(engine: InteractiveEngine, dataset, results_file: str, *,

@@ -41,6 +41,7 @@ from agile3d_torch.models.criterion import (
     total_loss,
 )
 from agile3d_torch.utils.misc import MetricLogger
+from agile3d_torch.utils.profiling import annotate
 
 
 class Optimizer:
@@ -246,32 +247,36 @@ def rollout_clicks(engine: InteractiveEngine, scene, labels: np.ndarray,
     """The no-gradient rollout before the supervised step: a random number
     of rounds (0..19), each a batched decoder pass and the click simulator
     per sample (clicked voxels forced to their object)."""
-    b = labels.shape[0]
-    clicks = [HostClicks(cfg.model.max_clicks) for _ in range(b)]
-    num_iters = rng.randint(0, 19)
-    current = 0
-    while current <= num_iters:
-        if current == 0:
-            preds = [np.zeros(n_valid[i], np.int32) for i in range(b)]
-        else:
-            pred_host = engine.run_mask_batch(scene, clicks,
-                                              num_obj).cpu().numpy()
-            preds = []
-            for i in range(b):
-                p = pred_host[i, : n_valid[i]].astype(np.int32)
-                v = clicks[i].vox[: clicks[i].count]
-                p[v] = clicks[i].obj[: clicks[i].count]
-                preds.append(p)
-        for i in range(b):
-            new = simulate_clicks(
-                preds[i], labels[i, : n_valid[i]], raw_per_sample[i],
-                num_obj=int(num_obj[i]), training=True,
-                current_num_clicks=current, rng=rng, device=engine.device,
-                max_label=cfg.model.max_fg_objects)
-            if new is not None:
-                clicks[i].extend(new)
-        current += 1
-    return clicks
+    with annotate("agile3d.engine.rollout"):
+        b = labels.shape[0]
+        clicks = [HostClicks(cfg.model.max_clicks) for _ in range(b)]
+        num_iters = rng.randint(0, 19)
+        current = 0
+        while current <= num_iters:
+            with annotate("agile3d.engine.round"):
+                if current == 0:
+                    preds = [np.zeros(n_valid[i], np.int32) for i in range(b)]
+                else:
+                    pred_dev = engine.run_mask_batch(scene, clicks, num_obj)
+                    with annotate("agile3d.engine.wait"):
+                        pred_host = pred_dev.cpu().numpy()
+                    preds = []
+                    for i in range(b):
+                        p = pred_host[i, : n_valid[i]].astype(np.int32)
+                        v = clicks[i].vox[: clicks[i].count]
+                        p[v] = clicks[i].obj[: clicks[i].count]
+                        preds.append(p)
+                for i in range(b):
+                    new = simulate_clicks(
+                        preds[i], labels[i, : n_valid[i]], raw_per_sample[i],
+                        num_obj=int(num_obj[i]), training=True,
+                        current_num_clicks=current, rng=rng,
+                        device=engine.device,
+                        max_label=cfg.model.max_fg_objects)
+                    if new is not None:
+                        clicks[i].extend(new)
+                current += 1
+        return clicks
 
 
 def prepare_batch(dataset, batch_ids, cfg: Config, seed: int):
@@ -303,7 +308,9 @@ def device_click_state(cs: ClickState, counts: torch.Tensor,
     """The device rollout's click table cut or padded (vox -1) to 64 slots
     when every sample has at most 64 clicks, else to ``max_clicks``; it
     stays on the device."""
-    mc = 64 if int(counts.max()) <= 64 else max_clicks
+    with annotate("agile3d.engine.wait"):
+        most = int(counts.max())
+    mc = 64 if most <= 64 else max_clicks
     b, have = cs.vox.shape
     if have >= mc:
         return ClickState(*(t[:, :mc] for t in cs))
@@ -375,9 +382,11 @@ def train_one_epoch(engine: InteractiveEngine, train_step, dataset,
         if cfg.model.dropout > 0:
             dropout_gen = torch.Generator(device=dev).manual_seed(
                 int(np_rng.integers(2 ** 31)))
-        out = train_step(engine.device_batch(batch), clicks, labels_dev,
-                         num_obj_dev, dropout_gen)
-        tot = float(out["loss"])
+        with annotate("agile3d.engine.step"):
+            out = train_step(engine.device_batch(batch), clicks, labels_dev,
+                             num_obj_dev, dropout_gen)
+        with annotate("agile3d.engine.wait"):
+            tot = float(out["loss"])
         if not np.isfinite(tot):
             raise FloatingPointError(f"Loss is {tot}, stopping training")
         logger.update(loss=tot, grad_norm=float(out["gnorm"]),

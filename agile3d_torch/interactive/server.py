@@ -38,6 +38,7 @@ from agile3d_torch.interactive.dataloader import InteractiveDataLoader
 from agile3d_torch.models.agile3d import ClickState, init_agile3d
 from agile3d_torch.sparse.quantize import sparse_quantize
 from agile3d_torch.utils.ckpt import load_checkpoint
+from agile3d_torch.utils.profiling import annotate
 
 
 def clicks_dict_to_arrays(click_idx: dict, click_time_idx: dict,
@@ -83,29 +84,31 @@ class InteractiveSegmentationServer:
     # -- scene lifecycle --
 
     def load_scene(self, idx: int):
-        with self._lock, torch.inference_mode():
+        with annotate("agile3d.server.load_scene"), self._lock, \
+                torch.inference_mode():
             return self._load_scene_locked(idx)
 
     def _load_scene_locked(self, idx: int):
-        name = self.loader.load_scene(idx)
-        coords, colors = self.loader.coords, self.loader.colors
-        shifted = coords - coords.min(0, keepdims=True)
-        vox, unique_map, inverse_map = sparse_quantize(
-            shifted, self.cfg.model.voxel_size)
-        labels_full = self.loader.labels_full
-        sample = SceneSample(
-            vox_coords=vox, raw_coords=shifted[unique_map],
-            feats=colors[unique_map],
-            labels=(labels_full[unique_map].astype(np.int32)
-                    if labels_full is not None
-                    else np.zeros(len(vox), np.int32)),
-            labels_full=(labels_full.astype(np.int32)
-                         if labels_full is not None
-                         else np.zeros(len(coords), np.int32)),
-            inverse_map=inverse_map, click_idx={}, scene_name=name,
-            num_obj=0)
-        self.sample = sample
-        self.batch = collate_scenes([sample], self.cfg.buckets)
+        with annotate("agile3d.data.prepare"):
+            name = self.loader.load_scene(idx)
+            coords, colors = self.loader.coords, self.loader.colors
+            shifted = coords - coords.min(0, keepdims=True)
+            vox, unique_map, inverse_map = sparse_quantize(
+                shifted, self.cfg.model.voxel_size)
+            labels_full = self.loader.labels_full
+            sample = SceneSample(
+                vox_coords=vox, raw_coords=shifted[unique_map],
+                feats=colors[unique_map],
+                labels=(labels_full[unique_map].astype(np.int32)
+                        if labels_full is not None
+                        else np.zeros(len(vox), np.int32)),
+                labels_full=(labels_full.astype(np.int32)
+                             if labels_full is not None
+                             else np.zeros(len(coords), np.int32)),
+                inverse_map=inverse_map, click_idx={}, scene_name=name,
+                num_obj=0)
+            self.sample = sample
+            self.batch = collate_scenes([sample], self.cfg.buckets)
         self.scene = self.engine.run_backbone(self.batch)
         self.n_valid = len(vox)
         # full-resolution arrays on the device, once per scene
@@ -128,7 +131,7 @@ class InteractiveSegmentationServer:
 
     def nearest_voxel(self, xyz: np.ndarray) -> int:
         """World position -> voxel row (the GUI's depth-unproject lookup)."""
-        with self._lock:
+        with annotate("agile3d.server.nearest_voxel"), self._lock:
             shifted = xyz - self.loader.coords.min(0)
             d = np.sum((self.sample.raw_coords - shifted[None, :]) ** 2,
                        axis=1)
@@ -144,7 +147,8 @@ class InteractiveSegmentationServer:
         object ids. Runs under ``torch.inference_mode`` in the calling
         thread (grad mode is per thread, and web.py calls from handler
         threads)."""
-        with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode(), \
+                annotate("agile3d.server.click"):
             return self._get_next_click_locked(
                 click_idx, click_time_idx, record, return_voxel)
 
@@ -170,8 +174,9 @@ class InteractiveSegmentationServer:
         # rides along as its four bytes
         buf = torch.cat([pred[:self.n_valid].to(torch.uint8),
                          pred_full.to(torch.uint8),
-                         iou.float().reshape(1).view(torch.uint8)]
-                        ).cpu().numpy()
+                         iou.float().reshape(1).view(torch.uint8)])
+        with annotate("agile3d.engine.wait"):
+            buf = buf.cpu().numpy()
         pred_vox = buf[:self.n_valid]
         pred_full = buf[self.n_valid:self.n_valid + self._n_full]
         iou = (float(buf[-4:].view(np.float32)[0])
@@ -183,18 +188,20 @@ class InteractiveSegmentationServer:
         return pred_full, iou
 
     def _record(self, click_idx, click_time_idx, pred_full, iou):
-        num_obj = max(len(click_idx) - 1, 1)
-        num_click = sum(len(c) for c in click_idx.values())
-        avg = round(num_click / num_obj, 1)
-        iou_str = "NA" if iou is None else str(round(iou * 100, 1))
-        stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-        line = (f"{stamp}  {self.sample.scene_name}  NumObjects:{num_obj}  "
-                f"AvgNumClicks:{avg}  mIoU:{iou_str}\n")
-        with open(self.loader.record_path, "a") as f:
-            f.write(line)
-        np.save(os.path.join(self.loader.mask_folder,
-                             f"mask_{avg}_{iou_str}.npy"), pred_full)
-        np.save(os.path.join(self.loader.click_folder,
-                             f"click_{avg}_{iou_str}.npy"),
-                {"click_idx": click_idx, "click_time": click_time_idx},
-                allow_pickle=True)
+        with annotate("agile3d.server.record"):
+            num_obj = max(len(click_idx) - 1, 1)
+            num_click = sum(len(c) for c in click_idx.values())
+            avg = round(num_click / num_obj, 1)
+            iou_str = "NA" if iou is None else str(round(iou * 100, 1))
+            stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+            line = (f"{stamp}  {self.sample.scene_name}  "
+                    f"NumObjects:{num_obj}  AvgNumClicks:{avg}  "
+                    f"mIoU:{iou_str}\n")
+            with open(self.loader.record_path, "a") as f:
+                f.write(line)
+            np.save(os.path.join(self.loader.mask_folder,
+                                 f"mask_{avg}_{iou_str}.npy"), pred_full)
+            np.save(os.path.join(self.loader.click_folder,
+                                 f"click_{avg}_{iou_str}.npy"),
+                    {"click_idx": click_idx, "click_time": click_time_idx},
+                    allow_pickle=True)

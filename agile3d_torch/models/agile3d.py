@@ -51,6 +51,7 @@ from agile3d_torch.ops.norm import layer_norm
 from agile3d_torch.ops.pos_enc import fourier_pos, positional_encoding_1d, sine_pos
 from agile3d_torch.ops.sparse_conv import linear
 from agile3d_torch.sparse.grid import PaddedPyramid
+from agile3d_torch.utils.profiling import annotate
 
 
 class ClickState(NamedTuple):
@@ -191,29 +192,30 @@ class Agile3D(nn.Module):
         [B, Ns] flat rows per sample slot, -1 pad. ``bn_stats`` (a dict)
         runs the backbone in training mode (see ``Res16UNet.forward``);
         ``cfg.backbone_dtype`` selects its dtype policy."""
-        fmaps = self.backbone(pyr, feats, bn_stats,
-                              compute_dtype=_BACKBONE_DTYPES[
-                                  self.cfg.backbone_dtype])
-        squeezed = linear(fmaps[-1].float(), self.lin_squeeze_head.kernel,
-                          self.lin_squeeze_head.bias,
-                          valid=pyr.levels[0].valid)
-        vox_valid = sample_idx >= 0
-        safe = sample_idx.clamp(0, squeezed.shape[0] - 1).long()
-        mask_feat = _where0(vox_valid[..., None], squeezed[safe])
-        raw_b = _where0(vox_valid[..., None], raw_coords[safe])
-        big = torch.tensor(3.4e38, dtype=raw_b.dtype, device=raw_b.device)
-        cmin = torch.where(vox_valid[..., None], raw_b, big).amin(dim=1)
-        cmax = torch.where(vox_valid[..., None], raw_b, -big).amax(dim=1)
-        pos_pcd = self._pos(raw_b, cmin[:, None, :], cmax[:, None, :],
-                            self.pos_enc.gauss_B)
-        pos_pcd = _where0(vox_valid[..., None], pos_pcd)
-        if self.cfg.decoder_dtype == "bfloat16":
-            # once per scene: every click round reads these two
-            mask_feat = mask_feat.to(torch.bfloat16)
-            pos_pcd = pos_pcd.to(torch.bfloat16)
-        return SceneFeatures(mask_feat=mask_feat, pos_pcd=pos_pcd,
-                             vox_valid=vox_valid, raw=raw_b, cmin=cmin,
-                             cmax=cmax)
+        with annotate("agile3d.model.backbone"):
+            fmaps = self.backbone(pyr, feats, bn_stats,
+                                  compute_dtype=_BACKBONE_DTYPES[
+                                      self.cfg.backbone_dtype])
+            squeezed = linear(fmaps[-1].float(), self.lin_squeeze_head.kernel,
+                              self.lin_squeeze_head.bias,
+                              valid=pyr.levels[0].valid)
+            vox_valid = sample_idx >= 0
+            safe = sample_idx.clamp(0, squeezed.shape[0] - 1).long()
+            mask_feat = _where0(vox_valid[..., None], squeezed[safe])
+            raw_b = _where0(vox_valid[..., None], raw_coords[safe])
+            big = torch.tensor(3.4e38, dtype=raw_b.dtype, device=raw_b.device)
+            cmin = torch.where(vox_valid[..., None], raw_b, big).amin(dim=1)
+            cmax = torch.where(vox_valid[..., None], raw_b, -big).amax(dim=1)
+            pos_pcd = self._pos(raw_b, cmin[:, None, :], cmax[:, None, :],
+                                self.pos_enc.gauss_B)
+            pos_pcd = _where0(vox_valid[..., None], pos_pcd)
+            if self.cfg.decoder_dtype == "bfloat16":
+                # once per scene: every click round reads these two
+                mask_feat = mask_feat.to(torch.bfloat16)
+                pos_pcd = pos_pcd.to(torch.bfloat16)
+            return SceneFeatures(mask_feat=mask_feat, pos_pcd=pos_pcd,
+                                 vox_valid=vox_valid, raw=raw_b, cmin=cmin,
+                                 cmax=cmax)
 
     # ------------------------------------------------------------------
     # Phase 2: decoder, once per click round
@@ -303,6 +305,12 @@ class Agile3D(nn.Module):
         backward draws its masks again. Dropout > 0 runs dense attention,
         as the JAX package does: its chunked forms carry no probability
         dropout."""
+        with annotate("agile3d.model.decoder"):
+            return self._forward_mask(scene, clicks, num_obj, train_gen)
+
+    def _forward_mask(self, scene: SceneFeatures, clicks: ClickState,
+                      num_obj: torch.Tensor,
+                      train_gen: torch.Generator | None) -> dict:
         cfg = self.cfg
         w = self._decoder_weights()
         if w is not self:

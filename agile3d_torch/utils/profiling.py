@@ -4,12 +4,15 @@ spans inside it, the card's memory counters, and the launch counts of the
 port's kernels (``kernel_launches``).
 
     with trace("runs/trace"):
-        with annotate("step"):
-            ...
+        evaluate_dataset(engine, dataset, "val.csv")
 
 ``trace`` writes a Chrome / TensorBoard trace (``*.pt.trace.json``) under
 ``log_dir`` when the block ends, with the CUDA activity when a card is
-present; ``annotate`` spans nest and show in it by name.
+present. The program opens its spans with ``annotate`` at the boundaries
+of its layers, every name under ``agile3d.`` (``agile3d.server.click``,
+``agile3d.engine.round``, ``agile3d.model.decoder``, ...; PERF.md lists
+them); they nest, per thread, and show in the trace by name. With no
+profiler recording a span costs one flag read.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import contextlib
 import os
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import ProfilerActivity
+
+# what ``annotate`` returns while no profiler records: one object, reused
+# (a ``nullcontext`` nests and re-enters)
+NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,16 +47,6 @@ def trace(log_dir: str | None):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 log_dir)) as prof:
         yield prof
-
-
-def start_profiler_server(port: int = 9999):
-    """The JAX package starts a profiler server that TensorBoard's capture
-    button connects to (``jax.profiler.start_server``). PyTorch has no
-    counterpart: its profiler records only inside a ``profile`` block, so
-    use ``trace`` around the work instead."""
-    raise NotImplementedError(
-        f"torch has no on-demand profiler server (port {port}): wrap the "
-        f"work in agile3d_torch.utils.profiling.trace(log_dir)")
 
 
 def device_memory_stats() -> dict:
@@ -71,8 +70,20 @@ def device_memory_stats() -> dict:
 
 def annotate(name: str):
     """A named span on the profiler's timeline (a context manager; spans
-    nest)."""
-    return torch.profiler.record_function(name)
+    nest, per thread). While no profiler records it is ``NO_SPAN``, which
+    enters nothing: the span costs a flag read. A span never waits on the
+    device.
+
+    The span is a function-scope record (torch's ``_RecordFunctionFast``,
+    as compiled graphs name themselves), not a user annotation: the
+    profiler copies a user annotation onto the device's timeline, over
+    the operations launched inside it, where a reader of that timeline
+    would count it as device work. The program's spans stay on the host's
+    timeline; the device operations point back to them through their
+    launches."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def kernel_wrappers() -> dict:
