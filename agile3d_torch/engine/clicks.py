@@ -4,8 +4,10 @@ the JAX package's ``engine/clicks.py``).
   * Error clusters partition mispredicted points by (gt, pred) pair.
   * For every error point, its distance to the error boundary is the
     distance to the nearest valid point of a DIFFERENT cluster (correct
-    points count as cluster -1). That O(E*N) part runs in torch on the
-    scene's device; the cluster ranking runs on the host.
+    points count as cluster -1). That O(E*N) part runs in plain torch on
+    the scene's device (the host loops' independent distance; the device
+    rollouts call ``ops/boundary_dist.py``'s kernel); the cluster ranking
+    (``pick_clicks``) runs on the host.
   * Cluster size = max distance; the next click is the point attaining it
     (first index on ties). Eval keeps all clusters at round 0 and the top
     one afterwards; the chosen clusters are shuffled with the caller's
@@ -70,7 +72,8 @@ def simulate_clicks(
     max_label: int = 10,
 ) -> NewClicks | None:
     """Next clicks for the current prediction, or None when nothing is
-    wrong. The boundary distances run on ``device``."""
+    wrong. The boundary distances run on ``device``, the ranking on the
+    host (``pick_clicks``)."""
     with annotate("agile3d.engine.clicks"):
         err = pred != labels
         if not err.any():
@@ -85,34 +88,52 @@ def simulate_clicks(
             torch.as_tensor(cluster, device=device),
             torch.ones(len(pred), dtype=torch.bool, device=device),
             torch.as_tensor(err_rows, device=device)).cpu().numpy()
+        return pick_clicks(d, err_rows, cluster, labels, num_obj=num_obj,
+                           training=training,
+                           current_num_clicks=current_num_clicks, rng=rng,
+                           max_label=max_label)
 
-        err_cl = cluster[err_rows]
-        # rank clusters by max boundary distance, descending; ties keep the
-        # reference's unique() order (ascending 96*gt + 11*pred key)
-        uniq = np.unique(err_cl)
-        ref_key = (uniq // k) * 96 + (uniq % k) * 11
-        uniq = uniq[np.argsort(ref_key, kind="stable")]
-        sizes = np.array([d[err_cl == c].max() for c in uniq])
-        ranked = uniq[np.argsort(-sizes, kind="stable")]
 
-        if training:
-            selected = ranked[:num_obj]
-        elif current_num_clicks == 0:
-            selected = ranked
-        else:
-            selected = ranked[:1]
-        selected = list(selected)
-        rng.shuffle(selected)
+def pick_clicks(d: np.ndarray, err_rows: np.ndarray, cluster: np.ndarray,
+                labels: np.ndarray, *, num_obj: int, training: bool,
+                current_num_clicks: int, rng,
+                max_label: int = 10) -> NewClicks:
+    """The clicks of a round from its error rows' boundary distances: d
+    [E] the distance of each row of err_rows [E] (+inf where no row of
+    another cluster is valid); cluster [N] each row's compact (gt, pred)
+    id, -1 where right; labels [N]. Clusters rank by their largest
+    distance, ties in the reference's unique() order; training keeps the
+    top ``num_obj``, eval every cluster in round 0 and the top one after;
+    ``rng`` (a ``random.Random``) shuffles them into the click order, and
+    each click is the first row attaining its cluster's distance."""
+    k = max_label + 1
+    err_cl = cluster[err_rows]
+    # rank clusters by max boundary distance, descending; ties keep the
+    # reference's unique() order (ascending 96*gt + 11*pred key)
+    uniq = np.unique(err_cl)
+    ref_key = (uniq // k) * 96 + (uniq % k) * 11
+    uniq = uniq[np.argsort(ref_key, kind="stable")]
+    sizes = np.array([d[err_cl == c].max() for c in uniq])
+    ranked = uniq[np.argsort(-sizes, kind="stable")]
 
-        vox, obj, order = [], [], []
-        for click_order, c in enumerate(selected):
-            rows = err_rows[err_cl == c]
-            best = rows[int(np.argmax(d[err_cl == c]))]  # first index on ties
-            vox.append(int(best))
-            obj.append(int(labels[best]))
-            order.append(click_order)
-        return NewClicks(np.array(vox, np.int32), np.array(obj, np.int32),
-                         np.array(order, np.int32))
+    if training:
+        selected = ranked[:num_obj]
+    elif current_num_clicks == 0:
+        selected = ranked
+    else:
+        selected = ranked[:1]
+    selected = list(selected)
+    rng.shuffle(selected)
+
+    vox, obj, order = [], [], []
+    for click_order, c in enumerate(selected):
+        rows = err_rows[err_cl == c]
+        best = rows[int(np.argmax(d[err_cl == c]))]  # first index on ties
+        vox.append(int(best))
+        obj.append(int(labels[best]))
+        order.append(click_order)
+    return NewClicks(np.array(vox, np.int32), np.array(obj, np.int32),
+                     np.array(order, np.int32))
 
 
 class HostClicks:

@@ -6,9 +6,12 @@ host: the decoder, the clicked-voxel override, the full-resolution IoU,
 the click simulation (boundary distances of the error rows through
 ``ops/boundary_dist.py``, then the top error cluster picked by
 scatter-max) and the click table's extension all stay on the card; the
-host reads the rounds' IoUs once, after the loop. Round 0 stays on the
-host: it selects one click per error cluster with the caller's
-``random.Random`` shuffle, as the host loop does. Later rounds add at most
+host reads the rounds' IoUs once, after the loop. Round 0 (``round0_clicks``)
+computes its boundary distances on the same kernel, over the scene's rows
+already on the card, and reads them back once: the host ranks the
+clusters and selects one click per error cluster with the caller's
+``random.Random`` shuffle, in the host loop's own code
+(``engine/clicks.py::pick_clicks``). Later rounds add at most
 one click (the top error cluster; no randomness), so the rows equal the
 host loop's (``evaluate_scene``): until the scene converges every round
 adds exactly one click, so the host knows each round's click count ahead
@@ -39,7 +42,7 @@ from agile3d_torch.engine.clicks import (
     click_override_device,
     click_schedule,
     mean_iou,
-    simulate_clicks,
+    pick_clicks,
 )
 from agile3d_torch.models.agile3d import ClickState
 from agile3d_torch.ops.boundary_dist import boundary_distances_all
@@ -142,6 +145,39 @@ def simulate_click_device(pred: torch.Tensor, labels: torch.Tensor,
 
 
 @torch.no_grad()
+def round0_clicks(coords: torch.Tensor, valid: torch.Tensor,
+                  labels: torch.Tensor, labels_host: np.ndarray, *,
+                  num_obj: int, rng, max_label: int = 10):
+    """Round 0's clicks of the eval protocol, on the zero prediction: every
+    object row is an error row, in its object's cluster. coords [N, 3],
+    valid [N] and labels [N] (-1 on pad rows) are the scene's rows on the
+    device, sorted as ``build_pyramid`` leaves them (the kernel's culling
+    relies on it); labels_host [n] the first n rows' labels, the valid
+    ones. The distances of the object rows run on
+    ``ops/boundary_dist.py``'s kernel and are read back once; the ranking
+    and the ``rng`` shuffle are ``pick_clicks``'s, so the clicks are
+    ``simulate_clicks``'s on the plain distance. None when the scene has
+    no object row."""
+    with annotate("agile3d.engine.clicks"):
+        err = labels_host != 0
+        err_rows = np.nonzero(err)[0].astype(np.int32)
+        if not len(err_rows):
+            return None
+        k = max_label + 1
+        rows = torch.from_numpy(err_rows).to(coords.device).long()
+        query = valid & (labels != 0)
+        cluster = torch.where(query, labels * k, -1).to(torch.int32)
+        d = boundary_distances_all(coords[None].contiguous(), cluster[None],
+                                   valid[None], query=query[None])
+        d = d[0, rows].cpu().numpy()
+        cluster_host = np.where(err, labels_host * k, -1)
+        return pick_clicks(d, err_rows, cluster_host, labels_host,
+                           num_obj=num_obj, training=False,
+                           current_num_clicks=0, rng=rng,
+                           max_label=max_label)
+
+
+@torch.no_grad()
 def rollout_rounds(model, scene, vox: torch.Tensor, obj: torch.Tensor,
                    tim: torch.Tensor, count: torch.Tensor,
                    num_obj: torch.Tensor, labels: torch.Tensor,
@@ -216,8 +252,9 @@ def rollout_rounds(model, scene, vox: torch.Tensor, obj: torch.Tensor,
 def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
                           rng, max_num_clicks: int = 20,
                           mode: str = "multi") -> list[str]:
-    """``engine/eval.py::evaluate_scene`` with rounds >= 1 on the device:
-    the same CSV rows ``id scene obj clicks iou``."""
+    """``engine/eval.py::evaluate_scene`` with round 0's distances and
+    rounds >= 1 on the device: the same CSV rows ``id scene obj clicks
+    iou``."""
     with annotate("agile3d.engine.scene"):
         if len(batch.scene_names) != 1:
             raise ValueError("eval runs one scene per batch")
@@ -234,18 +271,26 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
         scene_name = batch.scene_names[0].replace("scene", "")
 
         with annotate("agile3d.engine.round0"):
-            # round 0 on the host: zero prediction, one click per error
-            # cluster
+            # round 0: zero prediction, one click per error cluster
             clicks = HostClicks(cfg.model.max_clicks)
             pred0 = np.zeros(n_valid, np.int32)
             iou0 = engine.scene_iou(pred0, batch.inverse_map[0],
                                     batch.labels_full[0])
             rows = [f"{instance_id} {scene_name} {tag} "
                     f"{click_column(mode, 0, num_obj)} {iou0}"]
-            new = simulate_clicks(pred0, labels_v, batch.raw[:n_valid],
-                                  num_obj=num_obj, training=False,
-                                  current_num_clicks=0, rng=rng, device=dev,
-                                  max_label=max_label)
+            labels_pad = np.full(n, -1, np.int32)
+            labels_pad[:n_valid] = labels_v
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            labels_dev = t(labels_pad)
+            coords, vox_valid = scene.raw[0], scene.vox_valid[0]
+            if engine.sp_backbone:
+                # this rank's rows: the whole scene's, gathered
+                axis = engine.sp_mesh["sp"]
+                coords = all_gather(coords.contiguous(), axis)
+                vox_valid = all_gather(vox_valid, axis)
+            new = round0_clicks(coords, vox_valid & (labels_dev >= 0),
+                                labels_dev, labels_v, num_obj=num_obj,
+                                rng=rng, max_label=max_label)
             if new is not None:
                 clicks.extend(new)
 
@@ -258,9 +303,6 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
             buckets = [engine._click_bucket(clicks.count + r)
                        for r in range(rounds)]
             mc = engine._click_bucket(clicks.count + rounds)
-            labels_pad = np.full(n, -1, np.int32)
-            labels_pad[:n_valid] = labels_v
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             table = (t(clicks.vox[:mc]), t(clicks.obj[:mc]),
                      t(clicks.time[:mc]),
                      torch.tensor(clicks.count, dtype=torch.int32,
@@ -272,11 +314,11 @@ def evaluate_scene_device(engine, batch: SceneBatch, *, instance_id: int,
             from agile3d_torch.parallel.sp_rollout import rollout_rounds_sp
 
             ious = rollout_rounds_sp(engine.model, engine.sp_scene(scene),
-                                     *table, t(labels_pad), labels_full,
+                                     *table, labels_dev, labels_full,
                                      inverse_map, buckets, max_label,
                                      engine.sp_mesh["sp"])
         else:
-            ious = rollout_rounds(engine.model, scene, *table, t(labels_pad),
+            ious = rollout_rounds(engine.model, scene, *table, labels_dev,
                                   labels_full, inverse_map, buckets, max_label)
         with annotate("agile3d.engine.wait"):
             ious = ious.cpu().tolist()

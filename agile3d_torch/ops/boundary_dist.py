@@ -5,10 +5,13 @@ Hopper (``csrc/boundary_dist.cu``) and its plain PyTorch version.
               ||coords[b, i] - coords[b, j]||   (inf where no j qualifies)
 
 for every row i with ``query[b, i]`` (every row when ``query`` is None);
-the other rows hold +inf. The device click rollout
-(``engine/device_eval.py``, ``engine/device_train.py``) calls it once per
+the other rows hold +inf. The device click rollouts
+(``engine/device_eval.py``, ``engine/device_train.py``) call it once per
 round with the error rows as the query, so that no round waits on the host
-for them. It stands in for the XLA fusion of the JAX package's
+for them; the device eval also calls it once for a scene's round 0 (every
+object row queried), whose ranking runs on the host. The host loops keep
+their plain distance (``engine/clicks.py::boundary_distances``). It
+stands in for the XLA fusion of the JAX package's
 ``engine/device_eval.py::_boundary_distances_all``, not for a Pallas
 kernel. The squared distance is summed per axis, ``((0 + dx dx) + dy dy) +
 dz dz`` in float32 (the |x|^2 - 2xy + |y|^2 form cancels catastrophically);

@@ -25,7 +25,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 shapes (the error rows queried, as the main paths call
                 it, then every row), a ragged N, all rows invalid and one
                 cluster, with the pairs it evaluated against the all-pairs
-                count (and a parent commit's kernel, see below);
+                count (and a parent commit's kernel, see below); then
+                round 0 of the device eval on the smoke scene (``round0``):
+                its distance call (every object row queried) bit for bit
+                against the host loops' plain torch distance, both timed,
+                and its clicks equal to ``simulate_clicks``'s;
   3. probes -- the kernels of the TPU probes' counterparts: the windowed
                 banded k3 conv (its plan covers every neighbour of the
                 smoke scene's two finest maps) at the eval k3 shapes against
@@ -58,7 +62,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 object (the click table crosses a bucket): the default
                 device rollout, then ``--host_rollout``, each with the
                 kernels' launch counts read around it (one boundary-distance
-                launch per device round; the probes' kernels: 0); the CSV
+                launch for round 0 and one per device round; the probes'
+                kernels: 0); the CSV
                 rows of the two must agree, and the decoder must see the
                 same click bucket in each round of both; then once more with
                 the memory budget pinned at 0.01 GiB (``AGILE3D_HBM_GIB``):
@@ -67,7 +72,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 the smoke scene's first 2 objects at the default 20 clicks:
                 the device rollout, then ``--host_rollout``; rows equal, 8 k3
                 and 1 stem launches per object, one distance launch per
-                device round, the evaluator finite, then
+                object's round 0 and per device round, the evaluator
+                finite, then
                 ``python -m agile3d_torch.compute_ap`` on the CSV;
   9. serve -- the annotation server (``agile3d_torch.interactive``) on the
                 smoke scene at bf16 (the serving default) and f32: the scene
@@ -148,8 +154,9 @@ after the resume phase,
                 part by more), each timed; ``eval_multi_obj --sp 2`` and
                 ``--sp 2 --sp_backbone`` (``main(args)`` inside the ranks'
                 group) at 2 clicks an object against the one-process device
-                rollout (IoUs within 1e-4; one distance launch per round on
-                each rank; 8 k3 + 1 stem from the one-process backbone, none
+                rollout (IoUs within 1e-4; on each rank one distance launch
+                for round 0 and one per round; 8 k3 + 1 stem from the
+                one-process backbone, none
                 from the sharded one; each halo exchange's rows and bytes);
                 one dp step on two identical groups against the one-process
                 step, then ``main --num_dp 2`` for one epoch of 4 training
@@ -184,8 +191,8 @@ parallel phase,
   rollout paths -- ``python -m agile3d_torch.tools.compare_rollout_paths``
                 (in process) on 2 scenes of 50,000 points at 3 clicks an
                 object: no trajectory diverges, the two ``EvaluatorMO``
-                dicts equal, one distance launch a device round and none
-                in the host loop.
+                dicts equal, one distance launch a trajectory's round 0
+                and a device round, and none in the host loop.
 ``launches_by_path`` gains ``regime``, ``stress`` and ``rollout_paths``.
 
 The fourteenth slice (the last two tools) adds, after the rollout paths,
@@ -791,6 +798,65 @@ def phase_distances(torch, cases):
     return rows
 
 
+def phase_round0(torch, eval_batch):
+    """Round 0 of the device eval on the smoke scene: its distance call
+    (every object row queried) timed with the pairs it evaluated against
+    the all-pairs count, beside the plain torch distance that the host
+    loops run (``engine/clicks.py::boundary_distances``), bit for bit on
+    the object rows; then ``round0_clicks`` against ``simulate_clicks``
+    (the same clicks, in the same shuffled order) and the wall time of
+    each."""
+    from agile3d_torch.engine.clicks import boundary_distances, simulate_clicks
+    from agile3d_torch.engine.device_eval import round0_clicks
+    from agile3d_torch.ops.boundary_dist import (
+        all_pairs,
+        boundary_distances_all,
+    )
+
+    coords, cluster, valid = (torch.from_numpy(a[0]).to(DEVICE)
+                              for a in rollout_inputs(eval_batch))
+    labels = torch.from_numpy(eval_batch.labels[0]).to(DEVICE)
+    nv = int(valid.sum())
+    labels_host = eval_batch.labels[0, :nv]
+    num_obj = int(eval_batch.num_obj[0])
+    query = cluster >= 0
+    err_rows = torch.nonzero(query).reshape(-1)
+    args = (coords[None], cluster[None], valid[None])
+    pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    d = boundary_distances_all(*args, query=query[None], pairs=pairs)[0]
+    ones = torch.ones(nv, dtype=torch.bool, device=DEVICE)
+    plain = lambda: boundary_distances(coords[:nv], cluster[:nv], ones,
+                                       err_rows)
+    ref = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(d[err_rows], ref) and torch.isinf(d[~query]).all(),
+          f"round 0: the kernel differs from the host loops' distance in "
+          f"{int((d[err_rows] != ref).sum())} rows")
+    clicks = lambda: round0_clicks(coords, valid, labels, labels_host,
+                                   num_obj=num_obj, rng=random.Random(42))
+    host = lambda: simulate_clicks(
+        np.zeros(nv, np.int32), labels_host, eval_batch.raw[:nv],
+        num_obj=num_obj, training=False, current_num_clicks=0,
+        rng=random.Random(42), device=DEVICE)
+    got, want = clicks(), host()
+    check(all(np.array_equal(a, b) for a, b in zip(got, want))
+          and len(got.vox) == num_obj,
+          f"round 0: the device eval's clicks {got} are not the host "
+          f"loops' {want}")
+    n_pairs, n_all = int(pairs), all_pairs(valid[None], query[None])
+    row = dict(phase="round0", rows=int(valid.shape[0]), valid_rows=nv,
+               query_rows=int(query.sum()), clusters=num_obj,
+               pairs=n_pairs, all_pairs=n_all, pairs_share=n_pairs / n_all,
+               ms=time_ms(torch, lambda: boundary_distances_all(
+                   *args, query=query[None])),
+               plain_ms=time_ms(torch, plain, reps=2, warmup=0),
+               clicks_wall_ms=wall_ms(torch, clicks),
+               simulate_clicks_wall_ms=wall_ms(torch, host, reps=2))
+    emit(row)
+    check(n_pairs <= n_all, f"round 0: {n_pairs} pairs > all {n_all}")
+    return row
+
+
 @contextlib.contextmanager
 def native_host_prep(path: str, numpy_too: bool = False):
     """Counts the pyramids built and the point clouds quantized in the
@@ -1297,9 +1363,10 @@ def _eval_run(torch, scans, val_list, out_dir, host_rollout: bool):
         check(not events["mask"] and len(events["rounds"]) == 1
               and len(seen["widths"]) == rounds,
               f"{tag}: {len(events['rounds'])} device rollouts")
-        check(launches["boundary_distances_all"] == rounds,
+        # round 0's call, then one a round
+        check(launches["boundary_distances_all"] == rounds + 1,
               f"{tag}: distance kernel launches "
-              f"{launches['boundary_distances_all']} != {rounds} rounds")
+              f"{launches['boundary_distances_all']} != {rounds} rounds + 1")
     elapsed = lambda pairs: [a.elapsed_time(b) for a, b in pairs]
     return dict(rows=rows, ious=ious, launches=launches, wall_s=wall_s,
                 results=results, rounds=rounds, chunks=chunks,
@@ -1401,8 +1468,9 @@ def phase_single(torch, scans, tmp):
     """``python -m agile3d_torch.eval_single_obj`` (in process) on the
     smoke scene's first SINGLE_OBJECTS objects at the default 20-click
     budget: the device rollout, then ``--host_rollout``; the rows must be
-    equal, each object one backbone (8 k3 and 1 stem launches) and each
-    device round one distance launch; ``EvaluatorSO`` finite; then
+    equal, each object one backbone (8 k3 and 1 stem launches) and one
+    distance launch for its round 0 and each device round; ``EvaluatorSO``
+    finite; then
     ``python -m agile3d_torch.compute_ap`` on the CSV."""
     from agile3d_torch import compute_ap
 
@@ -1457,10 +1525,12 @@ def phase_single(torch, scans, tmp):
           "single: device and host rollouts wrote other rows")
     check(iou_diff <= 1e-5, f"single: device vs host IoU differs by "
                             f"{iou_diff}")
-    check(dev["launches"]["boundary_distances_all"] == rounds
+    # each object's round 0, then one a round
+    check(dev["launches"]["boundary_distances_all"]
+          == rounds + SINGLE_OBJECTS
           and host["launches"]["boundary_distances_all"] == 0,
           f"single: distance launches {dev['launches']} / {host['launches']}"
-          f" != {rounds} / 0")
+          f" != {rounds} + {SINGLE_OBJECTS} / 0")
     check(sorted(ap) == list(range(1, 21)) and all(
         math.isfinite(v) and 0.0 <= v <= 1.0 for v in ap_values)
           and "Results for 20 clicks." in buf.getvalue(),
@@ -3283,8 +3353,9 @@ def phase_parallel(torch, scans, val_list, tmp):
         check(v["iou_max_diff"] <= 1e-4, f"{k}: IoU differs by "
                                          f"{v['iou_max_diff']}")
         for lc in v["launches"]:
-            check(lc["boundary_distances_all"] == rounds,
-                  f"{k}: distance launches {lc} != {rounds} rounds")
+            # every rank runs round 0's call, then one a round
+            check(lc["boundary_distances_all"] == rounds + 1,
+                  f"{k}: distance launches {lc} != {rounds} rounds + 1")
             check(lc["banded_window_conv"] == lc["smem_row_gather"] == 0,
                   f"{k}: a probe kernel ran: {lc}")
             if k == "sp_eval":
@@ -3506,8 +3577,9 @@ def phase_rollout_paths(torch, tmp):
     """``python -m agile3d_torch.tools.compare_rollout_paths`` (its
     ``compare``, in process) on ROLLOUT_GROUPS at ROLLOUT_CLICKS clicks an
     object, random weights: no trajectory diverges, the two rollouts'
-    ``EvaluatorMO`` dicts are equal, one distance launch a device round
-    and none in the host loop, one eval backbone a scene on each."""
+    ``EvaluatorMO`` dicts are equal, one distance launch a trajectory's
+    round 0 and a device round and none in the host loop, one eval
+    backbone a scene on each."""
     from agile3d_torch.utils.profiling import kernel_launches
     from agile3d_torch.tools import compare_rollout_paths
 
@@ -3541,10 +3613,12 @@ def phase_rollout_paths(torch, tmp):
               and lc[name]["banded_conv"] % (4 * scenes) == 0
               and lc[name]["banded_conv"] > 0,
               f"rollout paths ({name}): backbone launches {lc[name]}")
+    # a trajectory's round 0, then one a device round
     check(lc["host"]["boundary_distances_all"] == 0
-          and lc["dev"]["boundary_distances_all"] == res["rounds"],
+          and lc["dev"]["boundary_distances_all"]
+          == res["rounds"] + res["n_traj"],
           f"rollout paths: distance launches {lc}, device rounds "
-          f"{res['rounds']}")
+          f"{res['rounds']} + {res['n_traj']} round 0s")
     return launches
 
 
@@ -3762,6 +3836,8 @@ def main():
         shapes += phase_distances(torch, distance_cases(eval_batch,
                                                         train_batch))
         lap("kernels")
+        phase_round0(torch, eval_batch)
+        lap("round0")
         probe_rows, probe_launches = phase_probes(torch, eval_batch.pyramid,
                                                   eval_dev)
         lap("probes")

@@ -34,7 +34,8 @@ from agile3d_torch.ops.banded_window import (
     window_mask,
     window_plan,
 )
-from agile3d_torch.engine.device_eval import error_clusters
+from agile3d_torch.engine.clicks import boundary_distances, simulate_clicks
+from agile3d_torch.engine.device_eval import error_clusters, round0_clicks
 from agile3d_torch.ops.boundary_dist import (
     boundary_distances_all,
     boundary_distances_all_reference,
@@ -652,6 +653,49 @@ def test_boundary_distances_of_query_rows_equal_plain(card, b, n, n_obj,
     assert 0 <= int(pairs) <= all_pairs(valid, query)
     if query_frac == 0.0:
         assert int(pairs) == 0
+
+
+@pytest.mark.parametrize("n,n_obj", [(4099, 5), (3000, 1), (2048, 0)])
+def test_round0_distance_is_the_host_loops(card, n, n_obj):
+    """Round 0's call in the device eval (every object row queried, in its
+    object's cluster; the background correct; pad rows after the scene's)
+    equals the host loops' plain distance
+    (``engine/clicks.py::boundary_distances``) bit for bit on the object
+    rows, and ``round0_clicks`` places ``simulate_clicks``'s clicks in
+    the same order. n_obj 0: one object and no background, +inf
+    everywhere."""
+    import random
+
+    coords, cl = _sorted_scene(n, max(n_obj, 1), n, card)
+    labels = cl + 1 if n_obj else torch.ones_like(cl)
+    pad = 64
+    coords = torch.cat([coords, torch.zeros(pad, 3, device=card)])
+    labels = torch.cat([labels, torch.full((pad,), -1, dtype=labels.dtype,
+                                           device=card)])
+    valid = labels >= 0
+    query = valid & (labels != 0)
+    cluster = torch.where(query, labels * 11, -1).to(torch.int32)
+    d = boundary_distances_all(coords[None], cluster[None], valid[None],
+                               query[None])[0]
+    err = torch.nonzero(query).reshape(-1)
+    ref = boundary_distances(coords[:n], cluster[:n],
+                             torch.ones(n, dtype=torch.bool, device=card),
+                             err)
+    torch.cuda.synchronize()
+    assert torch.equal(d[err], ref), int((d[err] != ref).sum())
+    assert torch.isinf(d[~query]).all()
+    if not n_obj:
+        assert torch.isinf(ref).all()
+    host = labels[:n].cpu().numpy()
+    num_obj = int((np.unique(host) > 0).sum())
+    got = round0_clicks(coords, valid, labels, host, num_obj=num_obj,
+                        rng=random.Random(n))
+    want = simulate_clicks(np.zeros(n, np.int32), host,
+                           coords[:n].cpu().numpy(), num_obj=num_obj,
+                           training=False, current_num_clicks=0,
+                           rng=random.Random(n), device=card)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def _snapped_scene(n, seed, device):

@@ -23,6 +23,7 @@ from agile3d_torch.data.datasets import InterMultiObjDataset as PortDataset
 from agile3d_torch.data.datasets import collate_scenes as port_collate
 from agile3d_torch.data.synthetic import write_benchmark as port_write_benchmark
 from agile3d_torch.engine import device_eval as pdev
+from agile3d_torch.engine import clicks as pclicks
 from agile3d_torch.engine import eval as peval
 from agile3d_torch.engine.clicks import click_override_device
 from agile3d_torch.ops import boundary_dist as bd
@@ -215,6 +216,77 @@ def test_simulate_click_without_errors():
     assert [int(v) for v in got[:2]] == [int(v) for v in want[:2]]
 
 
+def _round0_scene(case, seed, n=700):
+    """Round 0's inputs: coords [N, 3] float32, labels [N] (-1 on pad
+    rows, which follow the n valid ones). Objects 1..5 are balls in a
+    background 0; "single" binarises them; "pad" adds pad rows (at the
+    origin, nearer than any scene row) for the kernel's valid mask to
+    exclude; "ties" puts the points on an integer grid with duplicates,
+    so clusters' largest distances are attained by several rows;
+    "one_object" labels every row 1, so no row of another cluster exists
+    and every distance is +inf."""
+    rng = np.random.default_rng(seed)
+    if case == "ties":
+        coords = rng.integers(0, 8, (n, 3)).astype(np.float32)
+    else:
+        coords = (rng.random((n, 3)) * 6).astype(np.float32)
+    labels = np.zeros(n, np.int32)
+    for o, c in enumerate(rng.random((5, 3)) * 6, start=1):
+        labels[np.linalg.norm(coords - c, axis=1) < 1.5] = o
+    if case == "single":
+        labels = (labels == labels.max()).astype(np.int32)
+    if case == "one_object":
+        labels[:] = 1
+    if case == "pad":
+        coords = np.concatenate([coords, np.zeros((40, 3), np.float32)])
+        labels = np.concatenate([labels, np.full(40, -1, np.int32)])
+    return coords, labels
+
+
+@pytest.mark.parametrize("case,seed", [
+    ("multi", 0), ("multi", 1), ("multi", 2), ("single", 0), ("single", 1),
+    ("pad", 3), ("ties", 4), ("one_object", 5)])
+def test_round0_clicks_on_the_kernel_are_the_host_loops(case, seed):
+    """Round 0 of the device eval (its distances through the kernel's
+    wrapper, over the scene's padded rows) places the clicks that
+    ``simulate_clicks`` places on the plain distance with the same
+    ``random.Random`` seed: the same rows, objects and shuffled order;
+    the first row wins a tie, and an all-+inf cluster still clicks."""
+    coords, labels = _round0_scene(case, seed)
+    n = int((labels >= 0).sum())
+    num_obj = int((np.unique(labels[:n]) > 0).sum())
+    want = pclicks.simulate_clicks(
+        np.zeros(n, np.int32), labels[:n], coords[:n], num_obj=num_obj,
+        training=False, current_num_clicks=0, rng=random.Random(seed),
+        device="cpu")
+    lab = torch.from_numpy(labels)
+    got = pdev.round0_clicks(torch.from_numpy(coords), lab >= 0, lab,
+                             labels[:n], num_obj=num_obj,
+                             rng=random.Random(seed))
+    assert len(want.vox) == (1 if case in ("single", "one_object")
+                             else num_obj) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    err = np.nonzero(labels[:n])[0]
+    d = pclicks.boundary_distances(
+        torch.from_numpy(coords[:n]), torch.from_numpy(labels[:n]),
+        torch.ones(n, dtype=torch.bool), torch.from_numpy(err)).numpy()
+    if case == "ties":  # a picked cluster's largest distance, twice or more
+        assert any((d[labels[err] == labels[v]] == d[err == v].max()).sum()
+                   > 1 for v in want.vox)
+    if case == "one_object":
+        assert np.isinf(d).all() and list(want.vox) == [0]
+
+
+def test_round0_without_objects_places_no_click():
+    coords, labels = _round0_scene("multi", 0, n=50)
+    labels[:] = 0
+    lab = torch.from_numpy(labels)
+    assert pdev.round0_clicks(torch.from_numpy(coords), lab >= 0, lab,
+                              labels, num_obj=0,
+                              rng=random.Random(0)) is None
+
+
 MAX_NUM_CLICKS = 3
 ROLLOUT_SEED = 13
 
@@ -247,6 +319,40 @@ def test_device_rollout_rows_match_host_loop(port_rollouts):
     assert [d[:4] for d in dev] == [h[:4] for h in host]
     np.testing.assert_allclose([float(d[4]) for d in dev],
                                [float(h[4]) for h in host], rtol=0, atol=1e-5)
+
+
+def test_device_rollout_takes_the_kernel_in_round_0(port_rollouts,
+                                                    monkeypatch):
+    """The device eval calls the distance kernel's wrapper once in round 0
+    and once a round after it, and the plain distance never; the host loop
+    keeps the plain distance in every round and never calls the wrapper."""
+    calls = {"kernel": 0, "plain": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(pdev, "boundary_distances_all",
+                        counted("kernel", pdev.boundary_distances_all))
+    monkeypatch.setattr(pclicks, "boundary_distances",
+                        counted("plain", pclicks.boundary_distances))
+    engine, batch = port_rollouts["engine"], port_rollouts["batch"]
+    seen = {}
+    for name, fn in (("device", pdev.evaluate_scene_device),
+                     ("host", peval.evaluate_scene)):
+        calls.update(kernel=0, plain=0)
+        rows = fn(engine, batch, instance_id=0,
+                  rng=random.Random(ROLLOUT_SEED),
+                  max_num_clicks=MAX_NUM_CLICKS)
+        seen[name] = dict(calls, rows=rows)
+    assert seen["device"]["rows"] == port_rollouts["device"]
+    rounds = len(seen["device"]["rows"]) - 1
+    assert (seen["device"]["kernel"], seen["device"]["plain"]) == \
+        (rounds + 1, 0)
+    assert (seen["host"]["kernel"], seen["host"]["plain"]) == \
+        (0, len(seen["host"]["rows"]))
 
 
 def test_device_rollout_sees_the_host_loops_click_buckets(port_rollouts,
