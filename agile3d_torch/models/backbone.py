@@ -26,7 +26,12 @@ Routing of the CUDA kernels mirrors the JAX package on the TPU:
   * the k5 stem at level 0 with >= 32768 padded rows goes to
     ``ops.banded_stem`` in eval only: it has no backward kernel, so
     training takes the plain conv for the stem, as the JAX package does;
-  * every other conv is the plain gather-GEMM (``ops/sparse_conv.py``).
+  * every other conv is the plain gather-GEMM (``ops/sparse_conv.py``);
+    with gradients its backward gathers through the inverse map
+    (``GatherConv``) where the rows are the whole pyramid's
+    (``rows.inverse_maps``): the stencils are named as such, the down convs
+    are handed their level's ``up_parent`` / ``up_offset``, the transposed
+    convs the finer level's ``down``.
 
 Training mode (``bn_stats`` given): BatchNorm normalises with the batch's
 statistics and writes each layer's new running statistics into
@@ -195,9 +200,10 @@ def _residual(block, x, norm, cast):
 
 
 def _conv3_banded(x, k3, w):
+    # banded routing runs on the whole pyramid's rows only
     if x.shape[1] >= BANDED_MIN_CIN:
         return BandedConv.apply(x, k3, w)
-    return sparse_conv(x, k3, w)
+    return sparse_conv(x, k3, w, stencil=True)
 
 
 def _variant(layers, planes, block="basic"):
@@ -311,12 +317,13 @@ class Res16UNet(nn.Module):
         flag = self.cfg.banded_conv
         return x.is_cuda if flag is None else bool(flag)
 
-    def _stem(self, feats, lv0, training: bool, w, banded: bool):
+    def _stem(self, feats, lv0, training: bool, w, banded: bool,
+              stencil: bool):
         if (banded and not training
                 and self.cfg.conv1_kernel_size == 5
                 and lv0.k5.shape[0] >= BANDED_MIN_ROWS):
             return banded_stem_conv(feats, lv0.k5, w)
-        return sparse_conv(feats, lv0.k5, w)
+        return sparse_conv(feats, lv0.k5, w, stencil=stencil)
 
     def _caster(self, dtype, training: bool):
         """The function that gives each float32 weight in ``dtype``: the
@@ -348,11 +355,13 @@ class Res16UNet(nn.Module):
         package's bf16 policy (module docstring). ``rows``: None when
         ``pyr`` holds every row; a rank's block of a row-sharded pyramid
         gives its hooks (``parallel/sp_backbone.py::RowShards``: ``banded``
-        False, ``exchange(x, level)`` appends the halo rows a conv on that
-        level's maps reads, ``reduce`` sums BatchNorm's moments)."""
+        and ``inverse_maps`` False, ``exchange(x, level)`` appends the halo
+        rows a conv on that level's maps reads, ``reduce`` sums BatchNorm's
+        moments)."""
         lv = pyr.levels
         rows = rows or _ALL_ROWS
         use_banded = rows.banded and self._use_banded(feats)
+        inv = rows.inverse_maps
         training = bn_stats is not None
         cast = self._caster(compute_dtype, training)
         if compute_dtype is not None:
@@ -370,10 +379,12 @@ class Res16UNet(nn.Module):
             level = lv[level_idx]
             banded = (use_banded and level_idx < BANDED_LEVELS
                       and level.k3.shape[0] >= BANDED_MIN_ROWS)
-            conv = _conv3_banded if banded else sparse_conv
 
             def conv3(x, w):
-                return conv(rows.exchange(x, level), level.k3, w)
+                x = rows.exchange(x, level)
+                if banded:
+                    return _conv3_banded(x, level.k3, w)
+                return sparse_conv(x, level.k3, w, stencil=inv)
 
             def norm(module, x):
                 return module(x, level.valid, bn_stats, cast, rows.reduce)
@@ -383,13 +394,15 @@ class Res16UNet(nn.Module):
             return x
 
         stem = self._stem(rows.exchange(feats, lv[0]), lv[0], training,
-                          cast(self.conv0p1s1.kernel), use_banded)
+                          cast(self.conv0p1s1.kernel), use_banded, inv)
         out = torch.relu(bn(self.bn0, stem, lv[0].valid))
         skips = [out]
         for i, name in enumerate(("conv1p1s2", "conv2p2s2", "conv3p4s2",
                                   "conv4p8s2")):
             out = sparse_conv(rows.exchange(out, lv[i]), lv[i].down,
-                              cast(getattr(self, name).kernel))
+                              cast(getattr(self, name).kernel),
+                              up=(lv[i].up_parent, lv[i].up_offset)
+                              if inv else None)
             out = torch.relu(bn(getattr(self, f"bn{i + 1}"), out,
                                 lv[i + 1].valid))
             out = run_stage(getattr(self, f"block{i + 1}"), out, i + 1)
@@ -402,7 +415,8 @@ class Res16UNet(nn.Module):
             out = sparse_conv_transpose(rows.exchange(out, lv[tgt + 1]),
                                         lv[tgt].up_parent,
                                         lv[tgt].up_offset,
-                                        cast(getattr(self, name).kernel))
+                                        cast(getattr(self, name).kernel),
+                                        down=lv[tgt].down if inv else None)
             out = torch.relu(bn(getattr(self, f"bntr{i}"), out,
                                 lv[tgt].valid))
             out = torch.cat([out, skips[tgt]], dim=1)
@@ -412,9 +426,12 @@ class Res16UNet(nn.Module):
 
 
 class _AllRows:
-    """``Res16UNet.forward``'s hooks when the pyramid holds every row."""
+    """``Res16UNet.forward``'s hooks when the pyramid holds every row: the
+    level's maps index these rows, so their inverses hold
+    (``inverse_maps``)."""
 
     banded = True
+    inverse_maps = True
     reduce = None
 
     @staticmethod

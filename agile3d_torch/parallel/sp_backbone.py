@@ -196,9 +196,12 @@ class RowShards:
     block of rows: a halo exchange before every conv that reads a map, the
     cross-rank BatchNorm moments in training (one ``psum`` each of the
     count, the sum and the sum of squares; eval reads the running
-    statistics, rank-locally), and the plain convs only."""
+    statistics, rank-locally), and the plain convs only, on autograd's
+    backward under gradients: a rank's rows are followed by its halo, so
+    the maps' inverses are not maps of these rows (``inverse_maps``)."""
 
     banded = False
+    inverse_maps = False
 
     def __init__(self, axis: Axis):
         self.axis = axis
